@@ -1,0 +1,177 @@
+"""Matrix-free global SEM operators on torch tensors.
+
+Counterparts of ``sem_tpu.operators``.  With a field in grid form
+``U (Ngx, Ngy)`` every linear global operator factorizes into 1D products:
+
+- mass:       ``(M u)   = m1x[:,None] * U * m1y[None,:]``           (diagonal)
+- stiffness:  ``(K u)   = (K1x @ U) * m1y + m1x[:,None] * (U @ K1y.T)``
+- gradient-x: ``(Gx p)  = (G1x @ U) * m1y``
+- gradient-y: ``(Gy p)  = m1x[:,None] * (U @ G1y.T)``
+
+and the assembled convection operator is exactly ``u∘(Gx w) + v∘(Gy w)``
+(super-diagonal GLL product tensor; see ``sem_tpu.operators.apply_convection``).
+These applies are dense ``torch.matmul`` products, as the reference leaves
+them to XLA; the hot f32 Krylov matvecs go through the hand-written kernels of
+:mod:`sem_tpu_torch.ops.kernels` instead.  Every function takes the
+``Grid2D`` and builds its constants in the field's dtype on the field's
+device (cached on the grid).
+"""
+from __future__ import annotations
+
+import torch
+
+from sem_tpu_torch.mesh import Grid2D
+from sem_tpu_torch.utils.tensors import device_const
+
+__all__ = [
+    "grid_const", "gather", "scatter_sum",
+    "apply_mass", "apply_stiffness", "apply_grad_x", "apply_grad_y",
+    "apply_convection", "apply_system", "apply_coupled_system",
+    "conv_diag_x", "conv_diag_y",
+]
+
+
+def grid_const(grid: Grid2D, name: str, dtype, device) -> torch.Tensor:
+    """The grid's NumPy constant ``name`` as a cached tensor."""
+    return device_const(grid, name, lambda: getattr(grid, name), dtype,
+                        device)
+
+
+def _c(grid: Grid2D, name: str, like: torch.Tensor) -> torch.Tensor:
+    return grid_const(grid, name, like.dtype, like.device)
+
+
+def gather(grid: Grid2D, u: torch.Tensor) -> torch.Tensor:
+    """Global vector → element coefficient array ``(N_e, P+1, P+1)``.
+
+    Reshapes and strided slices only: per axis, entries i<P come from
+    ``x[:N_e·P]`` reshaped to (N_e, P); the shared i=P entry is ``x[P::P]``.
+    """
+    P, Nex, Ney = grid.P, grid.N_ex, grid.N_ey
+    U = u.reshape(grid.Ngx, grid.Ngy)
+    a = U[:Nex * P, :].reshape(Nex, P, grid.Ngy)
+    b = U[P::P, :][:, None, :]
+    rows = torch.cat([a, b], dim=1)                       # (Nex, P+1, Ngy)
+    c = rows[:, :, :Ney * P].reshape(Nex, P + 1, Ney, P)
+    d = rows[:, :, P::P][:, :, :, None]
+    cols = torch.cat([c, d], dim=3)                       # (Nex, P+1, Ney, P+1)
+    return cols.permute(0, 2, 1, 3).reshape(grid.N_e, P + 1, P + 1)
+
+
+def scatter_sum(grid: Grid2D, u_e: torch.Tensor) -> torch.Tensor:
+    """Element array ``(N_e, P+1, P+1)`` → global vector by duplicate-sum.
+
+    The exact transpose of :func:`gather`: two slice-adds per axis (interior
+    block + P-strided shared-node line); interface nodes receive both
+    neighbours' contributions, which is the C0 assembly sum.
+    """
+    P, Nex, Ney = grid.P, grid.N_ex, grid.N_ey
+    t = u_e.reshape(Nex, Ney, P + 1, P + 1).permute(0, 2, 1, 3)
+    colpart = torch.zeros((Nex, P + 1, grid.Ngy), dtype=u_e.dtype,
+                          device=u_e.device)
+    colpart[:, :, :Ney * P] += t[:, :, :, :P].reshape(Nex, P + 1, Ney * P)
+    colpart[:, :, P::P] += t[:, :, :, P]
+    out = torch.zeros((grid.Ngx, grid.Ngy), dtype=u_e.dtype,
+                      device=u_e.device)
+    out[:Nex * P, :] += colpart[:, :P, :].reshape(Nex * P, grid.Ngy)
+    out[P::P, :] += colpart[:, P, :]
+    return out.reshape(-1)
+
+
+def apply_mass(grid: Grid2D, u: torch.Tensor) -> torch.Tensor:
+    """Global (lumped, diagonal) mass operator."""
+    U = u.reshape(grid.Ngx, grid.Ngy)
+    return (_c(grid, "m1x", u)[:, None] * U
+            * _c(grid, "m1y", u)[None, :]).reshape(-1)
+
+
+def apply_stiffness(grid: Grid2D, u: torch.Tensor) -> torch.Tensor:
+    """Global stiffness ``K = K1x ⊗ diag(m1y) + diag(m1x) ⊗ K1y``."""
+    U = u.reshape(grid.Ngx, grid.Ngy)
+    KU = (_c(grid, "K1x", u) @ U) * _c(grid, "m1y", u)[None, :]
+    UK = (U @ _c(grid, "K1y", u).T) * _c(grid, "m1x", u)[:, None]
+    return (KU + UK).reshape(-1)
+
+
+def apply_grad_x(grid: Grid2D, p: torch.Tensor) -> torch.Tensor:
+    """Global weak x-derivative ``Gx = G1x ⊗ diag(m1y)``."""
+    U = p.reshape(grid.Ngx, grid.Ngy)
+    return ((_c(grid, "G1x", p) @ U)
+            * _c(grid, "m1y", p)[None, :]).reshape(-1)
+
+
+def apply_grad_y(grid: Grid2D, p: torch.Tensor) -> torch.Tensor:
+    """Global weak y-derivative ``Gy = diag(m1x) ⊗ G1y``."""
+    U = p.reshape(grid.Ngx, grid.Ngy)
+    return ((U @ _c(grid, "G1y", p).T)
+            * _c(grid, "m1x", p)[:, None]).reshape(-1)
+
+
+def apply_convection(grid: Grid2D, u, v, w) -> torch.Tensor:
+    """Assembled convection ``(u@Cx + v@Cy) w = u∘(Gx w) + v∘(Gy w)``."""
+    return u * apply_grad_x(grid, w) + v * apply_grad_y(grid, w)
+
+
+def apply_system(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
+    """``(K + coef·(u∂x + v∂y)) w`` from two matmuls with the stacked
+    operators ``[K1x; G1x]`` and ``[K1yᵀ, G1yᵀ]`` (the dense path; the f64
+    fields of the solvers take it)."""
+    Ngx, Ngy = grid.Ngx, grid.Ngy
+    W = w.reshape(Ngx, Ngy)
+    m1x = _c(grid, "m1x", w)[:, None]
+    m1y = _c(grid, "m1y", w)[None, :]
+    L = _c(grid, "KG1x", w) @ W          # [K1x@W ; G1x@W]
+    R = W @ _c(grid, "KG1yT", w)         # [W@K1yᵀ , W@G1yᵀ]
+    K2d = L[:Ngx] * m1y + m1x * R[:, :Ngy]
+    gx = (L[Ngx:] * m1y).reshape(-1)
+    gy = (m1x * R[:, Ngy:]).reshape(-1)
+    return K2d.reshape(-1) + coef * (u * gx + v * gy)
+
+
+def apply_coupled_system(grid: Grid2D, q, ul, vl, jac, mb, coef
+                         ) -> torch.Tensor:
+    """NS tangent saddle matvec ``(dru, drv, drc)`` for ``q = (du, dv, dp)``
+    from exactly two matmuls (the dense path of
+    ``sem_tpu.models.navier_stokes`` ``_coupled_ops.mv``).
+
+    ``dru = K du + coef(ul·Gx du + vl·Gy du) + jxx du + jxy dv + Gx dp`` and
+    likewise ``drv``; ``drc = Gx du + Gy dv``.  Dirichlet rows (``mb``) carry
+    ``du``, ``dv`` and the pressure-stiffness rows ``K dp``.  The pressure-pin
+    row is left to the caller, as in the kernel.
+    """
+    N, Ngx, Ngy = grid.N, grid.Ngx, grid.Ngy
+    DU, DV, DP = (q[k * N:(k + 1) * N].reshape(Ngx, Ngy) for k in range(3))
+    m1x = _c(grid, "m1x", q)[:, None]
+    m1y = _c(grid, "m1y", q)[None, :]
+    L = _c(grid, "KG1x", q) @ torch.cat([DU, DV, DP], dim=1)   # (2Ngx, 3Ngy)
+    R = torch.cat([DU, DV, DP], dim=0) @ _c(grid, "KG1yT", q)  # (3Ngx, 2Ngy)
+
+    def parts(f):  # f = 0:du, 1:dv, 2:dp
+        Kx = L[:Ngx, f * Ngy:(f + 1) * Ngy]
+        Gx = L[Ngx:, f * Ngy:(f + 1) * Ngy] * m1y
+        Ky = R[f * Ngx:(f + 1) * Ngx, :Ngy]
+        Gy = R[f * Ngx:(f + 1) * Ngx, Ngy:] * m1x
+        return (Kx * m1y + m1x * Ky).reshape(-1), Gx.reshape(-1), \
+            Gy.reshape(-1)
+
+    Ku, gxu, gyu = parts(0)
+    Kv, gxv, gyv = parts(1)
+    Kp, gxp, gyp = parts(2)
+    du, dv = q[:N], q[N:2 * N]
+    jxx, jxy, jyx, jyy = jac
+    dru = Ku + coef * (ul * gxu + vl * gyu) + jxx * du + jxy * dv + gxp
+    drv = Kv + coef * (ul * gxv + vl * gyv) + jyx * du + jyy * dv + gyp
+    drc = gxu + gyv
+    return torch.cat([torch.where(mb, du, dru), torch.where(mb, dv, drv),
+                      torch.where(mb, Kp, drc)])
+
+
+def conv_diag_x(grid: Grid2D, f) -> torch.Tensor:
+    """Diagonal (as a vector) of the global operator ``Cx @ f`` (right
+    slot) — equal to the assembled weak x-derivative ``Gx f``."""
+    return apply_grad_x(grid, f)
+
+
+def conv_diag_y(grid: Grid2D, f) -> torch.Tensor:
+    """Diagonal (as a vector) of the global operator ``Cy @ f``."""
+    return apply_grad_y(grid, f)

@@ -9,7 +9,7 @@ Phases, one output line each (any failure raises and exits non-zero before
 the last line):
 
 1. device and build: the card's name and power limit (``nvidia-smi``), and
-   the ``nvcc`` build of the two CUDA kernels from ``sem_tpu_torch/csrc``;
+   the ``nvcc`` build of the CUDA kernels from ``sem_tpu_torch/csrc``;
 2. kernel B1 (CD system apply) vs its plain PyTorch version and vs the f64
    dense path, at P=4 8×8, P=16 32×32 and P=16 64×64, tolerance
    2e-5·max|ref|;
@@ -23,17 +23,44 @@ the last line):
 6. the main path at full size: ``build_coupled`` + ``solve`` JNK with NS at
    P=16 64×64 and CD at P=16 32×32, Ra=1e3, from zero, to the coupled RMS
    tolerance 1e-8 of the reference's p16 study runs; the kernel launch
-   counts are reset just before and read just after, and each must be > 0.
+   counts are reset just before and read just after, and B1's and B2's
+   must be > 0;
+7. kernels B3/B4 (B1/B2 on row strips) at P=4 8×8, P=16 32×32 and P=16
+   64×64 with R = 2 and 4 strips in this process, each strip's halo cut
+   from the full field: the concatenated strips against the plain strip
+   versions and the f64 dense path (tolerance 2e-5·max|ref|), and the
+   largest difference to B1's/B2's output;
+8. median µs per strip launch of B3/B4 and their plain versions at P=16
+   64×64 with R=2, and of B3 also at its main-path shape P=16 32×32;
+9. the multi-process path at full size: ``run_parallel`` with the
+   configuration of phase 6, two ranks started as two processes of this
+   script (NCCL with one card per rank where there are two cards, gloo with
+   both ranks on cuda:0 otherwise).  Counts are reset just before and read
+   just after; in each rank B3's and B4's must be > 0 and B1's and B2's 0
+   (every f32 matvec went to the strips), the residual must meet atol and
+   the u-anchor 3.6531 ± 1e-3.  Rank 0 then times one halo exchange, one
+   full-field all-gather and one all-reduce at the NS chunk's shapes.
 
 Then a JSON line with one entry per kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
+import argparse
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# the main path's configuration (phases 6 and 9)
+NORTH_STAR = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=16, N_ex_cd=32, N_ey_cd=32,
+                  P_ns=16, N_ex_ns=64, N_ey_ns=64, mode="JNK",
+                  mtol_nonlin=1e-8, iprint=False)
+RANKS = 2            # phase 9
+RANK_TIMEOUT_S = 600
 
 
 def _line(tag, **kw):
@@ -47,12 +74,13 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
     from sem_tpu_torch import operators as ops
     from sem_tpu_torch.coupling import build_coupled, run
     from sem_tpu_torch.mesh import Grid2D
-    from sem_tpu_torch.ops import _build, kernels
+    from sem_tpu_torch.ops import _build, kernels, sharded
+    from sem_tpu_torch.parallel import row_strips
 
     dev = torch.device("cuda")
 
@@ -173,11 +201,7 @@ def main():
 
     # ---- 6. the main path at full size ----
     t0 = time.perf_counter()
-    cd, ns, mda = build_coupled(1.0, 1.0, Re=1e3, Ra=1e3, Pr=0.71,
-                                P_cd=16, N_ex_cd=32, N_ey_cd=32,
-                                P_ns=16, N_ex_ns=64, N_ey_ns=64,
-                                mode="JNK", mtol_nonlin=1e-8, iprint=False,
-                                device="cuda")
+    cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -202,21 +226,106 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if not (finite and resid <= mda.atol_nonlin
             and abs(u_anchor - 3.6531) <= 1e-3
-            and all(n > 0 for n in launches.values())):
+            and all(launches[k] > 0 for k in kernel_fns)):
         raise AssertionError(
             f"north-star solve failed: finite={finite} residual {resid:.3e} "
             f"(atol {mda.atol_nonlin:.3e}) u_anchor {u_anchor:.4f} "
             f"launches {launches}")
 
+    # ---- 7. kernels B3/B4 on row strips, halos cut from the full field ----
+    strip_fns = {
+        "apply_system_sharded": (sharded.apply_system_sharded,
+                                 sharded.apply_system_sharded_plain),
+        "apply_coupled_system_sharded": (
+            sharded.apply_coupled_system_sharded,
+            sharded.apply_coupled_system_sharded_plain)}
+    whole = {"apply_system_sharded": "apply_system",
+             "apply_coupled_system_sharded": "apply_coupled_system"}
+    main_strip_grid = {"apply_system_sharded": g32,
+                       "apply_coupled_system_sharded": g64}
+
+    def strip_args(name, grid, rows, a):
+        """One strip's arguments from the whole-grid inputs ``a``."""
+        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+        if name == "apply_system_sharded":
+            u, v, w, coef = a
+            return (grid, rows, u[sl], v[sl],
+                    sharded.strip_with_halo(grid, rows, w), coef)
+        q, u, v, jac, mb, coef = a
+        return (grid, rows, sharded.strip_with_halo(grid, rows, q, 3), u[sl],
+                v[sl], tuple(j[sl] for j in jac), mb[sl], coef)
+
+    def on_strips(name, fn, grid, R, a):
+        """The strips' outputs in the whole grid's layout."""
+        outs = [fn(*strip_args(name, grid, rows, a)).reshape(-1, (
+            rows[1] - rows[0]) * grid.Ngy)
+            for rows in row_strips(grid.Ngx, R, grid.P)]
+        return torch.cat(outs, dim=1).reshape(-1)
+
+    for name, (kfn, pfn) in strip_fns.items():
+        for grid in (g4, g32, g64):
+            a32 = inputs(grid, torch.float32)[whole[name]]
+            a64 = inputs(grid, torch.float64)[whole[name]]
+            ref64 = kernel_fns[whole[name]][2](grid, *a64)
+            b12 = kernel_fns[whole[name]][0](grid, *a32)
+            for R in (2, 4):
+                got = on_strips(name, kfn, grid, R, a32)
+                ref = on_strips(name, pfn, grid, R, a32)
+                torch.cuda.synchronize()
+                err, scale = max_err(got, ref)
+                err64, scale64 = max_err(got, ref64)
+                diff_whole = float((got - b12).abs().max())
+                ok = err <= 2e-5 * scale and err64 <= 2e-5 * scale64
+                _line(name, grid=grid.tag, R=R, max_abs_err=f"{err:.3e}",
+                      max_abs_err_f64=f"{err64:.3e}", scale=f"{scale:.3e}",
+                      tol="2e-5*scale", max_diff_to_whole_grid_kernel=
+                      f"{diff_whole:.3e}", ok=ok)
+                if not ok:
+                    raise AssertionError(
+                        f"{name} at {grid.tag} R={R}: kernel error "
+                        f"{err:.3e} (plain) / {err64:.3e} (f64 dense) "
+                        f"exceeds 2e-5*{scale:.3e}")
+                if grid is main_strip_grid[name] and R == RANKS:
+                    report[name] = {"max_abs_err": err}
+
+    # ---- 8. strip timings (rank 0's strip of R=2) ----
+    for name, (kfn, pfn) in strip_fns.items():
+        for grid in (g64, g32) if name == "apply_system_sharded" else (g64,):
+            rows = row_strips(grid.Ngx, RANKS, grid.P)[0]
+            a = strip_args(name, grid, rows,
+                           inputs(grid, torch.float32)[whole[name]])
+            plain_ms = median_ms(lambda: pfn(*a))
+            ms = median_ms(lambda: kfn(*a))
+            _line("timing", kernel=name, grid=grid.tag, R=RANKS,
+                  strip_rows=f"{rows[0]}:{rows[1]}",
+                  kernel_us=f"{1e3 * ms:.1f}",
+                  plain_us=f"{1e3 * plain_ms:.1f}",
+                  smi=f"'{smi}'")
+            if grid is main_strip_grid[name]:
+                report[name].update(ms=ms, plain_ms=plain_ms)
+
+    # ---- 9. run_parallel, one process per rank ----
+    ranks = run_ranks()
+    r0 = ranks[0]
+
     rows = []
-    for name, src, replaces in (
+    for name, src, replaces, n in (
             ("apply_system", "sem_tpu_torch/csrc/apply_system.cu",
-             "sem_tpu/ops/pallas_kernels.py:104"),
+             "sem_tpu/ops/pallas_kernels.py:104", launches["apply_system"]),
             ("apply_coupled_system", "sem_tpu_torch/csrc/coupled_system.cu",
-             "sem_tpu/ops/pallas_kernels.py:276")):
+             "sem_tpu/ops/pallas_kernels.py:276",
+             launches["apply_coupled_system"]),
+            ("apply_system_sharded",
+             "sem_tpu_torch/csrc/apply_system_strip.cu",
+             "sem_tpu/ops/pallas_kernels.py:541",
+             r0["launches"]["apply_system_sharded"]),
+            ("apply_coupled_system_sharded",
+             "sem_tpu_torch/csrc/coupled_system_strip.cu",
+             "sem_tpu/ops/pallas_kernels.py:630",
+             r0["launches"]["apply_coupled_system_sharded"])):
         r = report[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": n,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -225,5 +334,169 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def _free_port():
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
+def run_ranks():
+    """Phase 9: start one process of this script per rank, wait for all
+    (killing every one on a failure or the time limit), print their output
+    and check each rank's result; returns the ranks' results."""
+    port = _free_port()
+    # each rank writes to a file: a full pipe would block a rank's prints
+    # while the other waits for it in a collective
+    log_dir = os.path.join(ROOT, "build", "sem_tpu_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    logs = [open(os.path.join(log_dir, f"chip_smoke_rank{r}.log"), "w+")
+            for r in range(RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(RANKS), "--port", str(port)], cwd=ROOT,
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+        for r, log in enumerate(logs)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        res = None
+        for ln in log.read().splitlines():
+            if ln.startswith("RANK_RESULT "):
+                res = json.loads(ln[len("RANK_RESULT "):])
+            else:
+                print(f"  rank{r}| {ln}", flush=True)
+        log.close()
+        results.append(res)
+    if timed_out:
+        raise AssertionError(f"run_parallel ranks exceeded {RANK_TIMEOUT_S} "
+                             f"s and were killed")
+    for r, (p, res) in enumerate(zip(procs, results)):
+        if p.returncode != 0 or res is None:
+            raise AssertionError(f"rank {r} failed (exit {p.returncode})")
+        n = res["launches"]
+        if not (res["finite"] and res["residual"] <= res["atol"]
+                and abs(res["u_anchor"] - 3.6531) <= 1e-3
+                and n["apply_system_sharded"] > 0
+                and n["apply_coupled_system_sharded"] > 0
+                and n["apply_system"] == 0 and n["apply_coupled_system"] == 0):
+            raise AssertionError(f"run_parallel failed in rank {r}: {res}")
+    if any(res["stats"] != results[0]["stats"] for res in results):
+        raise AssertionError(f"ranks disagree: {results}")
+    return results
+
+
+def rank_main(rank: int, world: int, port: int):
+    """One rank of phase 9 (started by :func:`run_ranks`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from sem_tpu_torch.coupling import build_coupled, run_parallel
+    from sem_tpu_torch.ops import COLLECTIVES, LAUNCHES, RowStrips
+    from sem_tpu_torch.ops.sharded import all_reduce
+    from sem_tpu_torch.parallel import init_distributed, make_group, use_group
+
+    rank, world, dev = init_distributed(f"127.0.0.1:{port}", world, rank)
+    group = make_group()
+    tag = f"rank{rank}"
+    _line(tag, backend=group.backend, world=world, device=dev,
+          device_count=torch.cuda.device_count(),
+          card=torch.cuda.get_device_name(dev))
+    pts = np.meshgrid(np.linspace(0, 1, 21), np.linspace(0, 1, 21),
+                      indexing="ij")
+    # warm-up (CUDA, cuBLAS, gloo/NCCL set-up) on the reference configuration
+    t0 = time.perf_counter()
+    _, u, v, _, stats = run_parallel(
+        pts, 1.0, 1.0, Re=1e3, Ra=1e3, Pr=0.71, P_cd=4, N_ex_cd=8, N_ey_cd=8,
+        P_ns=4, N_ex_ns=8, N_ey_ns=8, mode="JNK", iprint=False,
+        return_state=True, device=dev)
+    _line(tag, warmup="P4_8x8_JNK", seconds=f"{time.perf_counter() - t0:.2f}",
+          stats=stats.as_list(), gmres_iters=stats.gmres_iters)
+
+    for counts in (LAUNCHES, COLLECTIVES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, _, _, s, stats = run_parallel(pts, 1.0, 1.0, return_state=True,
+                                     device=dev, **NORTH_STAR)
+    torch.cuda.synchronize(dev)
+    t_run = time.perf_counter() - t0
+    launches, collectives = dict(LAUNCHES), dict(COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the solvers again, to evaluate the final residual of the state
+    t0 = time.perf_counter()
+    with use_group(group):
+        _, ns, mda = build_coupled(1.0, 1.0, device=dev, **NORTH_STAR)
+    torch.cuda.synchronize(dev)
+    t_build = time.perf_counter() - t0
+    resid = float(torch.linalg.vector_norm(mda._residuals(s)))
+    u_anchor = float(s.u.abs().max()) * 1e3 * 0.71
+    finite = all(bool(torch.isfinite(f).all()) for f in (s.T, s.u, s.v, s.p))
+    _line(tag, north_star="run_parallel", run_parallel_s=f"{t_run:.2f}",
+          build_s=f"{t_build:.2f}", stats=stats.as_list(),
+          gmres_iters=stats.gmres_iters, residual=f"{resid:.3e}",
+          atol=f"{mda.atol_nonlin:.3e}", u_anchor=f"{u_anchor:.4f}",
+          launches=launches, collectives=collectives,
+          max_memory_allocated_GB=f"{peak / 1e9:.2f}")
+
+    # one of each collective at the NS chunk's shapes (host clock around
+    # synchronized calls, median of 20 after warm-up; every rank takes part)
+    st = RowStrips(ns.grid, group)
+    x = torch.randn(3 * st.nrows * ns.grid.Ngy, device=dev)
+
+    def median_us(fn, reps=20, warm=3):
+        ts = []
+        for i in range(warm + reps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            if i >= warm:
+                ts.append(time.perf_counter() - t0)
+        return 1e6 * statistics.median(ts)
+
+    coll_us = {"halo_exchange_3_fields": median_us(lambda: st.exchange(x, 3)),
+               "strip_gather_3_fields": median_us(lambda: st.gather(x, 3)),
+               "all_reduce_17": median_us(lambda: all_reduce(
+                   group, torch.ones(17, device=dev)))}
+    _line(tag, collective_us={k: f"{v:.1f}" for k, v in coll_us.items()},
+          strip_rows=f"{st.rows[0]}:{st.rows[1]}", Ngy=ns.grid.Ngy)
+    print("RANK_RESULT " + json.dumps({
+        "rank": rank, "backend": group.backend, "stats": stats.as_list(),
+        "gmres_iters": stats.gmres_iters, "residual": resid,
+        "atol": mda.atol_nonlin, "u_anchor": u_anchor, "finite": finite,
+        "launches": launches, "collectives": collectives,
+        "collective_us": coll_us, "run_parallel_s": t_run,
+        "build_s": t_build, "peak_bytes": peak}), flush=True)
+    # leaving with the group alive can abort at interpreter exit (gloo)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.rank is None:
+        main()
+    else:
+        rank_main(a.rank, a.world, a.port)

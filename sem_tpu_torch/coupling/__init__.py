@@ -3,8 +3,9 @@ and the Boussinesq drivers."""
 from sem_tpu_torch.coupling.components import (ConvectionDiffusionComponent,
                                                NavierStokesComponent)
 from sem_tpu_torch.coupling.mda import BoussinesqMDA, CoupledState, MDAStats
-from sem_tpu_torch.coupling.boussinesq import run, build_coupled
+from sem_tpu_torch.coupling.boussinesq import (build_coupled, run,
+                                               run_parallel)
 
 __all__ = ["ConvectionDiffusionComponent", "NavierStokesComponent",
            "BoussinesqMDA", "CoupledState", "MDAStats", "run",
-           "build_coupled"]
+           "run_parallel", "build_coupled"]

@@ -23,7 +23,7 @@ from sem_tpu_torch.coupling.mda import BoussinesqMDA
 from sem_tpu_torch.models.convection_diffusion import ConvectionDiffusionSolver
 from sem_tpu_torch.models.navier_stokes import NavierStokesSolver
 
-__all__ = ["run", "build_coupled"]
+__all__ = ["run", "run_parallel", "build_coupled"]
 
 
 def build_coupled(L_x: float, L_y: float,
@@ -97,3 +97,19 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
     if return_state:
         return T_plot, u_plot, v_plot, state, mda.stats
     return T_plot, u_plot, v_plot
+
+
+def run_parallel(points_plot, L_x, L_y, *args, **kwargs):
+    """:func:`run` decomposed over every rank of the process group of
+    :func:`sem_tpu_torch.parallel.init_distributed`.
+
+    Counterpart of ``sem_tpu.coupling.run_parallel``: every rank calls it
+    with the same arguments, each f32 Krylov chunk of the CD and NS solves
+    runs on row strips (kernels B3/B4, halo exchanges, all-reduced GMRES),
+    and every rank returns the same replicated results.  Pass each rank its
+    own ``device`` (the one ``init_distributed`` returns).
+    """
+    from sem_tpu_torch.parallel import make_group, use_group
+
+    with use_group(make_group()):
+        return run(points_plot, L_x, L_y, *args, **kwargs)

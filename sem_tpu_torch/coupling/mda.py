@@ -28,6 +28,8 @@ import torch
 
 from sem_tpu_torch.coupling.components import (ConvectionDiffusionComponent,
                                                NavierStokesComponent)
+from sem_tpu_torch.parallel.distributed import assert_replicated
+from sem_tpu_torch.parallel.sharding import active_group
 
 __all__ = ["BoussinesqMDA", "MDAStats", "CoupledState"]
 
@@ -313,7 +315,22 @@ class BoussinesqMDA:
             s = self._solve_newton(s, krylov=self.mode == "JNK", warm=warm)
         self.stats.cd_solves = self.cd_comp.iter_count_solve
         self.stats.ns_solves = self.ns_comp.iter_count_solve
+        group = active_group()
+        if group is not None and group.world > 1:
+            self._assert_ranks_agree(group, s)
         return s
+
+    def _assert_ranks_agree(self, group, s: CoupledState):
+        """Every rank of a decomposed solve must end with the same stats and
+        the same fields: all-gather them (f64 checksums of each field) and
+        raise on any difference."""
+        values = {k: float(v) for k, v in
+                  dataclasses.asdict(self.stats).items()}
+        for name in ("T", "u", "v", "p"):
+            f = getattr(s, name)
+            values[f"sum({name})"] = f.sum()
+            values[f"sum(|{name}|)"] = f.abs().sum()
+        assert_replicated(group, values)
 
     def _solve_gs(self, s: CoupledState) -> CoupledState:
         for k in range(1, self.maxiter + 1):

@@ -1,5 +1,6 @@
-// Shared device helper of the two SEM system-apply kernels (apply_system.cu,
-// coupled_system.cu): the four band sums of one output node.
+// Shared device helpers of the SEM system-apply kernels (apply_system.cu,
+// coupled_system.cu, and their row-strip versions *_strip.cu): the four band
+// sums of one output node.
 //
 // The assembled 1D operators K1x, G1x, K1y, G1y of the C0 spectral-element
 // grid are banded with half-band P (an interface row couples the two
@@ -41,6 +42,41 @@ __device__ __forceinline__ void band_sums(
     const size_t row = (size_t)i * Ngy;
     for (int t = ty0; t < ty1; ++t) {
         const float w = __ldg(f + row + (j - P + t));
+        ky = fmaf(__ldg(kybT + (size_t)t * Ngy + j), w, ky);
+        gy = fmaf(__ldg(gybT + (size_t)t * Ngy + j), w, gy);
+    }
+}
+
+// The same four sums for node (i, j) of a row strip (kernels B3/B4).  The
+// strip holds global rows r0..r0+nrows-1; i = r0 + il.
+//   f_ext     the strip's field with P halo rows on each side, row-major
+//             ((nrows + 2P) × Ngy): global row g sits at row g - r0 + P; halo
+//             rows beyond the grid's edges are zero (and never read)
+//   kxs, gxs  the x-band coefficient rows of the strip (row il ↔ global i)
+// The loop bounds come from the global row i and the loop order is that of
+// band_sums, so a strip node reproduces the whole-grid kernel's bits.
+__device__ __forceinline__ void band_sums_strip(
+    const float* __restrict__ f_ext,
+    const float* __restrict__ kxs, const float* __restrict__ gxs,
+    const float* __restrict__ kybT, const float* __restrict__ gybT,
+    int il, int i, int j, int Ngx, int Ngy, int P,
+    float& kx, float& gx, float& ky, float& gy)
+{
+    const int nb = 2 * P + 1;
+    kx = 0.f; gx = 0.f; ky = 0.f; gy = 0.f;
+    const int tx0 = max(0, P - i), tx1 = min(nb, Ngx + P - i);
+    const float* kr = kxs + (size_t)il * nb;
+    const float* gr = gxs + (size_t)il * nb;
+    for (int t = tx0; t < tx1; ++t) {
+        // global row i-P+t is strip row il+t of f_ext
+        const float w = __ldg(f_ext + (size_t)(il + t) * Ngy + j);
+        kx = fmaf(__ldg(kr + t), w, kx);
+        gx = fmaf(__ldg(gr + t), w, gx);
+    }
+    const int ty0 = max(0, P - j), ty1 = min(nb, Ngy + P - j);
+    const size_t row = (size_t)(il + P) * Ngy;
+    for (int t = ty0; t < ty1; ++t) {
+        const float w = __ldg(f_ext + row + (j - P + t));
         ky = fmaf(__ldg(kybT + (size_t)t * Ngy + j), w, ky);
         gy = fmaf(__ldg(gybT + (size_t)t * Ngy + j), w, gy);
     }

@@ -9,6 +9,11 @@ small Hessenberg/Givens recurrence runs on the host in float64.  Each
 iteration reads back one small vector (the new Hessenberg column and two
 norms), which is also what the convergence test needs; an iteration whose
 DGKS test asks for a second orthogonalization sweep reads back once more.
+
+``gmres(..., group=g)`` runs on row strips over the ranks of ``g``: each norm
+and each chunk of projection coefficients is reduced locally, then
+all-reduced.  :func:`strip_chunk` builds the solvers' decomposed f32 chunks
+on it.
 """
 from __future__ import annotations
 
@@ -19,8 +24,10 @@ import numpy as np
 import scipy.linalg
 import torch
 
-__all__ = ["gmres", "refined_gmres_host", "KrylovInfo", "DGKS_ETA",
-           "DGKS_ETA_F64"]
+from sem_tpu_torch.ops.sharded import all_reduce
+
+__all__ = ["gmres", "strip_chunk", "refined_gmres_host", "KrylovInfo",
+           "DGKS_ETA", "DGKS_ETA_F64"]
 
 
 class KrylovInfo(NamedTuple):
@@ -47,13 +54,17 @@ DGKS_ETA_F64 = 2 ** -0.5   # float64
 _LP_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _mgs_sweep_live(V, w, k, cchunk):
+def _mgs_sweep_live(V, w, k, cchunk, group=None):
     """One block-MGS sweep of ``w`` against the live rows ``0..k`` of ``V``,
-    chunk by chunk.  Returns ``(w, h)`` with ``h`` of length ``k+1``."""
+    chunk by chunk.  Returns ``(w, h)`` with ``h`` of length ``k+1``.  With
+    a ``group``, ``V`` and ``w`` are this rank's strips, and each chunk's
+    projection coefficients are all-reduced before the update."""
     hs = []
     for j in range(k // cchunk + 1):
         Vj = V[j * cchunk:min((j + 1) * cchunk, k + 1)].to(w.dtype)
         hj = Vj @ w
+        if group is not None:
+            hj = all_reduce(group, hj)
         w = w - Vj.T @ hj
         hs.append(hj)
     return w, torch.cat(hs)
@@ -82,7 +93,8 @@ def _givens(h, cs, sn, g, k):
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, *, atol: float,
           restart: int = 30, maxiter: int = 1000,
-          precon: Optional[Callable] = None, basis_dtype=None):
+          precon: Optional[Callable] = None, basis_dtype=None,
+          group=None):
     """Restarted GMRES(m) with right preconditioning.
 
     Same algorithm as ``sem_tpu.krylov.gmres``: live-chunk block-MGS with a
@@ -99,10 +111,20 @@ def gmres(matvec: Callable, b: torch.Tensor,
     :param precon: *linear* right preconditioner ``M⁻¹(r)``
     :param basis_dtype: storage dtype of the basis (default: ``b.dtype``);
         arithmetic stays in the working dtype
+    :param group: decompose over the ranks of this group
+        (:mod:`sem_tpu_torch.parallel`): ``b``, ``x0``, the result and what
+        ``matvec``/``precon`` take and return are this rank's strips; every
+        norm and projection is reduced locally, then all-reduced, so each
+        scalar that reaches the host is the same on every rank
     :return: ``(x, KrylovInfo)``
     """
     if precon is None:
         precon = lambda r: r  # noqa: E731
+    if group is None:
+        norm = torch.linalg.vector_norm
+    else:
+        def norm(x):
+            return torch.sqrt(all_reduce(group, (x @ x).reshape(1)))[0]
     m = int(restart)
     n = b.shape[0]
     dtype = b.dtype
@@ -117,7 +139,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
 
     def new_cycle(x):
         r = b - matvec(x)
-        beta = float(torch.linalg.vector_norm(r))
+        beta = float(norm(r))
         V[0] = r / max(beta, eps_tiny)
         return beta
 
@@ -135,16 +157,15 @@ def gmres(matvec: Callable, b: torch.Tensor,
         k = 0
         while True:
             w = matvec(precon(V[k].to(dtype)))
-            n0 = torch.linalg.vector_norm(w)
-            w, h = _mgs_sweep_live(V, w, k, cchunk)
-            n1 = torch.linalg.vector_norm(w)
+            n0 = norm(w)
+            w, h = _mgs_sweep_live(V, w, k, cchunk, group)
+            n1 = norm(w)
             host = torch.cat([torch.stack([n0, n1]), h]).tolist()
             hcol = host[2:]
             hk1 = host[1]
             if host[1] < eta * host[0]:     # DGKS: second sweep
-                w, h2 = _mgs_sweep_live(V, w, k, cchunk)
-                host2 = torch.cat([torch.linalg.vector_norm(w)[None],
-                                   h2]).tolist()
+                w, h2 = _mgs_sweep_live(V, w, k, cchunk, group)
+                host2 = torch.cat([norm(w)[None], h2]).tolist()
                 hk1 = host2[0]
                 hcol = [a + c for a, c in zip(hcol, host2[1:])]
                 nresweep += 1
@@ -172,6 +193,25 @@ def gmres(matvec: Callable, b: torch.Tensor,
         res = cycle_res = beta
     return x, KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
                          stalled=stalled, resweeps=nresweep)
+
+
+def strip_chunk(strips, nf: int, mv: Callable, pc: Callable, **gmres_kw):
+    """A ``gmres_chunk`` for :func:`refined_gmres_host` decomposed over the
+    ranks of ``strips.group`` (a :class:`sem_tpu_torch.ops.RowStrips`) for
+    vectors of ``nf`` stacked fields: the RHS and warm start are cut to this
+    rank's strips, the operator ``pc ∘ mv`` applies ``mv`` on the strips
+    (one halo exchange) and the preconditioner ``pc`` on the all-gathered
+    full fields (replicated), GMRES all-reduces its reductions, and the
+    correction is all-gathered back to the full, replicated vector."""
+    def op(q):
+        return strips.local(pc(strips.gather(mv(q), nf)), nf)
+
+    def chunk(rp, x0, atol_lp):
+        x, info = gmres(op, strips.local(rp, nf), x0=strips.local(x0, nf),
+                        atol=atol_lp, group=strips.group, **gmres_kw)
+        return strips.gather(x, nf), info
+
+    return chunk
 
 
 def refined_gmres_host(cres: Callable, pc_lp: Callable,

@@ -11,7 +11,11 @@ seven-method discipline protocol (``_get_residuals``, ``_calc_jacobians``,
 ``_get_interpol``) plus ``run``.  The linear solve is FDM-preconditioned
 GMRES: by default float32 chunks whose matvec is kernel B1
 (:func:`sem_tpu_torch.ops.apply_system_best`) inside float64 iterative
-refinement; ``mixed_precision=False`` runs one float64 GMRES.
+refinement; ``mixed_precision=False`` runs one float64 GMRES.  Under an
+active group (:func:`sem_tpu_torch.parallel.use_group`) of more than one
+rank, each f32 chunk is decomposed into row strips, whose matvec is kernel B3
+(:func:`sem_tpu_torch.ops.apply_system_sharded`); everything else stays
+replicated.
 """
 from __future__ import annotations
 
@@ -23,9 +27,11 @@ import torch
 from sem_tpu_torch import operators as ops
 from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator
-from sem_tpu_torch.krylov import gmres, refined_gmres_host
+from sem_tpu_torch.krylov import gmres, refined_gmres_host, strip_chunk
 from sem_tpu_torch.mesh import Grid2D
-from sem_tpu_torch.ops import apply_system_best
+from sem_tpu_torch.ops import (RowStrips, apply_system_best,
+                               apply_system_sharded)
+from sem_tpu_torch.parallel.sharding import active_group, row_strips
 
 __all__ = ["ConvectionDiffusionSolver"]
 
@@ -70,6 +76,9 @@ class ConvectionDiffusionSolver:
         self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
         self.points = self.grid.points
         self.N = self.grid.N
+        group = active_group()
+        if group is not None and group.world > 1:
+            row_strips(self.grid.Ngx, group.world, P)   # raises if too thin
 
         dirichlet = np.full(self.N, np.nan)
         for side, val in (("W", T_W), ("E", T_E), ("S", T_S), ("N", T_N)):
@@ -101,14 +110,25 @@ class ConvectionDiffusionSolver:
         return torch.as_tensor(x, device=self.device).to(self._dtype)
 
     # ------------------------------ kernels ------------------------------ #
-    def _mv(self, u, v, sigma):
+    def _mv(self, u, v, sigma, strips: RowStrips = None):
         """Masked tangent matvec ``(K + Pe(u∂x + v∂y) + σM) dT`` in the dtype
-        of ``u``/``v`` (float32 → kernel B1, float64 → the dense path)."""
+        of ``u``/``v`` (float32 → kernel B1, float64 → the dense path); with
+        ``strips``, on this rank's f32 strip of ``dT`` (halo exchange, then
+        kernel B3)."""
         md = self._md[u.dtype]
         mask, grid, Pe = self._mask, self.grid, self._Pe
+        if strips is None:
+            def apply(dT):
+                return apply_system_best(grid, u, v, dT, Pe)
+        else:
+            u, v, md, mask = (strips.local(a) for a in (u, v, md, mask))
+
+            def apply(dT):
+                return apply_system_sharded(grid, strips.rows, u, v,
+                                            strips.exchange(dT), Pe)
 
         def mv(dT):
-            r = apply_system_best(grid, u, v, dT, Pe)
+            r = apply(dT)
             if sigma != 0.0:
                 r = r + sigma * md * dT
             return torch.where(mask, dT, r)
@@ -202,13 +222,21 @@ class ConvectionDiffusionSolver:
         ul32, vl32 = self._lin32()
         sigma, fdm = self._sigma, self._fdm
         mv64 = self._mv(self._u, self._v, sigma)
-        mv32 = self._mv(ul32, vl32, sigma)
         restart = self._restart
+        group = active_group()
+        if group is None or group.world == 1:
+            mv32 = self._mv(ul32, vl32, sigma)
 
-        def chunk(rp, x0, atol_lp):
-            return gmres(lambda q: fdm(mv32(q), sigma=sigma), rp, x0=x0,
-                         atol=atol_lp, restart=restart,
-                         maxiter=2 * restart + 5)
+            def chunk(rp, x0, atol_lp):
+                return gmres(lambda q: fdm(mv32(q), sigma=sigma), rp, x0=x0,
+                             atol=atol_lp, restart=restart,
+                             maxiter=2 * restart + 5)
+        else:
+            # row strips: B3 matvec on this rank's strip, the FDM replicated
+            st = RowStrips(self.grid, group)
+            chunk = strip_chunk(st, 1, self._mv(ul32, vl32, sigma, st),
+                                lambda r: fdm(r, sigma=sigma),
+                                restart=restart, maxiter=2 * restart + 5)
 
         return refined_gmres_host(
             cres=lambda x: drhs - mv64(x),

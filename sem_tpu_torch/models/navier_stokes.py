@@ -16,7 +16,11 @@ Poisson pencil + exact boundary-ring elimination) and FDM velocity blocks.
 By default the Krylov loop runs as float32 chunks, whose matvec is kernel B2
 (:func:`sem_tpu_torch.ops.apply_coupled_system_best`), inside float64
 iterative refinement; a chunk that floors far above tolerance escalates like
-the reference.
+the reference.  Under an active group
+(:func:`sem_tpu_torch.parallel.use_group`) of more than one rank, each f32
+chunk is decomposed into row strips of (du, dv, dp), whose matvec is kernel B4
+(:func:`sem_tpu_torch.ops.apply_coupled_system_sharded`); everything else
+stays replicated.
 
 Not ported yet (they raise ``NotImplementedError``): the Uzawa linear
 solver, the ``'mass'``/``'pcd'`` Schur blocks, ``velo_inner > 0`` and the
@@ -33,9 +37,11 @@ import torch
 from sem_tpu_torch import operators as ops
 from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator
-from sem_tpu_torch.krylov import gmres, refined_gmres_host
+from sem_tpu_torch.krylov import gmres, refined_gmres_host, strip_chunk
 from sem_tpu_torch.mesh import Grid2D
-from sem_tpu_torch.ops import apply_coupled_system_best
+from sem_tpu_torch.ops import (RowStrips, apply_coupled_system_best,
+                               apply_coupled_system_sharded)
+from sem_tpu_torch.parallel.sharding import active_group, row_strips
 from sem_tpu_torch.utils.tensors import device_const
 
 __all__ = ["NavierStokesSolver"]
@@ -185,6 +191,9 @@ class NavierStokesSolver:
         self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
         self.points = self.grid.points
         self.N = self.grid.N
+        group = active_group()
+        if group is not None and group.world > 1:
+            row_strips(self.grid.Ngx, group.world, P)   # raises if too thin
 
         # Dirichlet values and masks: no normal flow on all walls, tangential
         # values per side, pressure pinned at the centre node
@@ -313,9 +322,12 @@ class NavierStokesSolver:
 
         return apply_
 
-    def _coupled_ops(self, u_lin, v_lin, jac, dtype):
+    def _coupled_ops(self, u_lin, v_lin, jac, dtype, strips: RowStrips = None):
         """Coupled saddle matvec + block-triangular preconditioner in
-        ``dtype`` (float32 → kernel B2, float64 → the dense path)."""
+        ``dtype`` (float32 → kernel B2, float64 → the dense path).  With
+        ``strips``, the matvec takes and returns this rank's f32 strips of
+        (du, dv, dp) (one halo exchange, then kernel B4); the preconditioner
+        stays on full fields."""
         grid, mb, N, Re = self.grid, self._mb, self.N, self._Re
         ul, vl = u_lin.to(dtype), v_lin.to(dtype)
         jac = tuple(j.to(dtype) for j in jac)
@@ -323,10 +335,26 @@ class NavierStokesSolver:
         spectral = self._spectral(dtype)
         fdm = self._fdm
 
-        def mv(q):
-            out = apply_coupled_system_best(grid, q, ul, vl, jac, mb, Re)
-            out[pin] = q[pin]
-            return out
+        if strips is None:
+            def mv(q):
+                out = apply_coupled_system_best(grid, q, ul, vl, jac, mb, Re)
+                out[pin] = q[pin]
+                return out
+        else:
+            ul_s, vl_s, mb_s = (strips.local(a) for a in (ul, vl, mb))
+            jac_s = tuple(strips.local(j) for j in jac)
+            # the pin row is set by the rank that owns it (local index)
+            pin_s = strips.local_index(self._pin)
+            if pin_s is not None:
+                pin_s += 2 * strips.nrows * grid.Ngy
+
+            def mv(q):
+                out = apply_coupled_system_sharded(
+                    grid, strips.rows, strips.exchange(q, 3), ul_s, vl_s,
+                    jac_s, mb_s, Re)
+                if pin_s is not None:
+                    out[pin_s] = q[pin_s]
+                return out
 
         def pc(r, sigma):
             ru, rv, rp = r[:N], r[N:2 * N], r[2 * N:]
@@ -367,13 +395,25 @@ class NavierStokesSolver:
         sigma = self._sigma
         mv64, _ = self._coupled_ops(self._u_lin, self._v_lin, self._jac,
                                     self._dtype)
-        mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, torch.float32)
         restart, basis_dtype = self._restart, self._basis_dtype
+        group = active_group()
+        if group is None or group.world == 1:
+            mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, torch.float32)
 
-        def chunk(rp, x0, atol_lp):
-            return gmres(lambda q: pc32(mv32(q), sigma), rp, x0=x0,
-                         atol=atol_lp, restart=restart,
-                         maxiter=2 * restart + 5, basis_dtype=basis_dtype)
+            def chunk(rp, x0, atol_lp):
+                return gmres(lambda q: pc32(mv32(q), sigma), rp, x0=x0,
+                             atol=atol_lp, restart=restart,
+                             maxiter=2 * restart + 5,
+                             basis_dtype=basis_dtype)
+        else:
+            # row strips of (du, dv, dp): B4 matvec on this rank's strips,
+            # the preconditioner replicated
+            st = RowStrips(self.grid, group)
+            mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, torch.float32,
+                                           st)
+            chunk = strip_chunk(st, 3, mv32, lambda r: pc32(r, sigma),
+                                restart=restart, maxiter=2 * restart + 5,
+                                basis_dtype=basis_dtype)
 
         z = torch.zeros(2 * N, dtype=self._dtype, device=self.device)
         return refined_gmres_host(

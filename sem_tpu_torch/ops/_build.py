@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of the package.
 
 The ``.cu`` files under ``sem_tpu_torch/csrc`` have a plain C interface.  At
-first use, :func:`library` compiles them with ``nvcc`` for ``sm_90a`` into one
+first use, :func:`library` compiles them with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links them into one
 shared library under ``build/sem_tpu_torch/`` at the root of the checkout
 (git-ignored; ``SEM_TPU_TORCH_BUILD_DIR`` overrides it), named by a hash of the
 sources and flags, and loads it with ``ctypes``.  A later process with the same
@@ -24,7 +25,7 @@ __all__ = ["library", "build_dir", "NVCC_FLAGS", "last_build_seconds"]
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 #: wall seconds of the compile in this process (0.0 when the library was
 #: already built); set by :func:`library`
@@ -40,6 +41,12 @@ _SIGNATURES = {
     # out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kxb, gxb, kybT, gybT, m1x, m1y,
     # coef, Ngx, Ngy, P, stream
     "sem_apply_coupled_system_f32": [_P] * 15 + [_F, _I, _I, _I, _P],
+    # out, u, v, w_ext, kxs, gxs, kybT, gybT, m1xs, m1y, coef, r0, nrows,
+    # Ngx, Ngy, P, stream
+    "sem_apply_system_strip_f32": [_P] * 10 + [_F] + [_I] * 5 + [_P],
+    # out, q_ext, ul, vl, jxx, jxy, jyx, jyy, mb, kxs, gxs, kybT, gybT, m1xs,
+    # m1y, coef, r0, nrows, Ngx, Ngy, P, stream
+    "sem_apply_coupled_system_strip_f32": [_P] * 15 + [_F] + [_I] * 5 + [_P],
 }
 
 
@@ -59,6 +66,19 @@ def _nvcc() -> str:
                        "need the CUDA toolkit (set CUDA_HOME)")
 
 
+def _run_all(cmds):
+    """Start every command at once and wait for all; raise with the output
+    of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; raises on failure."""
@@ -73,14 +93,18 @@ def library() -> ctypes.CDLL:
     lib_path = out_dir / f"libsem_tpu_torch_{h.hexdigest()[:16]}.so"
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+        tag = f"tmp{os.getpid()}"
+        tmp = lib_path.with_suffix(f".{tag}.so")
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        nvcc = _nvcc()
+        objs = [out_dir / f"{src.stem}.{h.hexdigest()[:16]}.{tag}.o"
+                for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src),
+                   "-o", str(obj)] for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, lib_path)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))

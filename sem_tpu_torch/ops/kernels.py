@@ -16,9 +16,11 @@ A wrapper launches its kernel for a CUDA float32 tensor and raises for any
 other dtype on the card; a build or launch failure raises.  Only a tensor on
 the CPU takes the plain version (``*_plain``), which computes the same
 function with plain tensor ops in the compact band form.  Each launch adds one
-to :data:`LAUNCHES`.  The dispatchers ``apply_system_best`` /
-``apply_coupled_system_best`` send float64 fields to the dense two-matmul
-path of :mod:`sem_tpu_torch.operators`, as the reference does.
+to :data:`LAUNCHES`, which also counts the row-strip kernels B3/B4 of
+:mod:`sem_tpu_torch.ops.sharded`, each under its own name.  The dispatchers
+``apply_system_best`` / ``apply_coupled_system_best`` send float64 fields to
+the dense two-matmul path of :mod:`sem_tpu_torch.operators`, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ __all__ = ["LAUNCHES", "band_storage", "band_operators",
 
 #: kernel launches since the counts were last reset (by name); the plain
 #: versions and the dense path never add to them
-LAUNCHES = {"apply_system": 0, "apply_coupled_system": 0}
+LAUNCHES = {"apply_system": 0, "apply_coupled_system": 0,
+            "apply_system_sharded": 0, "apply_coupled_system_sharded": 0}
 
 
 def band_storage(A: np.ndarray, P: int) -> np.ndarray:
@@ -78,41 +81,52 @@ def band_operators(grid: Grid2D, dtype, device) -> dict:
 
 
 # ----------------------------- plain versions ----------------------------- #
-def _band_products(grid: Grid2D, Fs: torch.Tensor):
+def _band_products(grid: Grid2D, Fs: torch.Tensor, rows=None):
     """``(K1x F, G1x F, F K1yᵀ, F G1yᵀ)`` for a batch ``Fs (B, Ngx, Ngy)``
     from the band form: each direction is one contraction of the band
-    coefficients with the (2P+1)-tap windows of the zero-padded field."""
+    coefficients with the (2P+1)-tap windows of the zero-padded field.
+
+    With ``rows=(r0, r1)``, ``Fs (B, r1-r0+2P, Ngy)`` is a row strip with
+    ``P`` halo rows on each side (zeros beyond the grid), and the products
+    are those of the global rows ``r0..r1-1``."""
     P = grid.P
     c = band_operators(grid, Fs.dtype, Fs.device)
-    wx = F.pad(Fs, (0, 0, P, P)).unfold(1, 2 * P + 1, 1)   # [b,i,j,t]=F[i-P+t,j]
-    wy = F.pad(Fs, (P, P)).unfold(2, 2 * P + 1, 1)         # [b,i,j,t]=F[i,j-P+t]
-    X = torch.einsum("oit,bijt->obij", torch.stack([c["kxb"], c["gxb"]]), wx)
+    if rows is None:
+        r0, r1 = 0, grid.Ngx
+        Fc, Fs = Fs, F.pad(Fs, (0, 0, P, P))
+    else:
+        r0, r1 = rows
+        Fc = Fs[:, P:Fs.shape[1] - P]
+    wx = Fs.unfold(1, 2 * P + 1, 1)                  # [b,i,j,t]=F[i-P+t,j]
+    wy = F.pad(Fc, (P, P)).unfold(2, 2 * P + 1, 1)   # [b,i,j,t]=F[i,j-P+t]
+    X = torch.einsum("oit,bijt->obij",
+                     torch.stack([c["kxb"][r0:r1], c["gxb"][r0:r1]]), wx)
     Y = torch.einsum("otj,bijt->obij", torch.stack([c["kybT"], c["gybT"]]),
                      wy)
-    return X[0], X[1], Y[0], Y[1], c["m1x"][:, None], c["m1y"][None, :]
+    return X[0], X[1], Y[0], Y[1], c["m1x"][r0:r1, None], c["m1y"][None, :]
 
 
-def apply_system_plain(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
-    """Plain PyTorch version of kernel B1 (same function, band form)."""
-    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(
-        grid, w.reshape(1, grid.Ngx, grid.Ngy))
+def _system_plain(grid: Grid2D, u, v, Fs, coef, rows=None):
+    """B1's function on the rows of ``Fs`` (see :func:`_band_products`)."""
+    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(grid, Fs, rows)
     K2d = Kx[0] * m1y + m1x * Ky[0]
-    return (K2d + coef * (u.reshape(grid.Ngx, grid.Ngy) * (Gx[0] * m1y)
-                          + v.reshape(grid.Ngx, grid.Ngy) * (m1x * Gy[0]))
-            ).reshape(-1)
+    shape = K2d.shape
+    return (K2d + coef * (u.reshape(shape) * (Gx[0] * m1y)
+                          + v.reshape(shape) * (m1x * Gy[0]))).reshape(-1)
 
 
-def apply_coupled_system_plain(grid: Grid2D, q, ul, vl, jac, mb, coef
-                               ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B2 (same function, band form; the
-    three Krylov fields form one batch)."""
-    N = grid.N
-    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(
-        grid, q.reshape(3, grid.Ngx, grid.Ngy))
-    K2d = (Kx * m1y + m1x * Ky).reshape(3, N)
-    gx = (Gx * m1y).reshape(3, N)
-    gy = (m1x * Gy).reshape(3, N)
-    du, dv = q[:N], q[N:2 * N]
+def _coupled_plain(grid: Grid2D, Qs, ul, vl, jac, mb, coef, rows=None):
+    """B2's function on the rows of the three fields ``Qs`` (see
+    :func:`_band_products`); ``ul``, ``vl``, ``jac``, ``mb`` and the output
+    cover the same rows."""
+    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(grid, Qs, rows)
+    n = Kx.shape[1] * Kx.shape[2]
+    K2d = (Kx * m1y + m1x * Ky).reshape(3, n)
+    gx = (Gx * m1y).reshape(3, n)
+    gy = (m1x * Gy).reshape(3, n)
+    P = grid.P
+    Qc = Qs if rows is None else Qs[:, P:Qs.shape[1] - P]
+    du, dv = Qc[0].reshape(-1), Qc[1].reshape(-1)
     jxx, jxy, jyx, jyy = jac
     dru = K2d[0] + coef * (ul * gx[0] + vl * gy[0]) + jxx * du + jxy * dv \
         + gx[2]
@@ -121,6 +135,19 @@ def apply_coupled_system_plain(grid: Grid2D, q, ul, vl, jac, mb, coef
     drc = gx[0] + gy[1]
     return torch.cat([torch.where(mb, du, dru), torch.where(mb, dv, drv),
                       torch.where(mb, K2d[2], drc)])
+
+
+def apply_system_plain(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
+    """Plain PyTorch version of kernel B1 (same function, band form)."""
+    return _system_plain(grid, u, v, w.reshape(1, grid.Ngx, grid.Ngy), coef)
+
+
+def apply_coupled_system_plain(grid: Grid2D, q, ul, vl, jac, mb, coef
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2 (same function, band form; the
+    three Krylov fields form one batch)."""
+    return _coupled_plain(grid, q.reshape(3, grid.Ngx, grid.Ngy), ul, vl, jac,
+                          mb, coef)
 
 
 # -------------------------------- wrappers -------------------------------- #

@@ -1,7 +1,8 @@
 """Port parity, kernel layer: the plain PyTorch versions of kernels B1/B2
 against ``sem_tpu``'s Pallas kernels (interpret mode, as tests/test_pallas.py
 runs them), the dispatch rules of ``sem_tpu_torch.ops.kernels``, and — on a
-CUDA card only — each CUDA kernel against its plain version."""
+CUDA card only — each CUDA kernel (B1-B4) against its plain version.  The
+strip kernels B3/B4 are held against JAX in tests/test_torch_parallel.py."""
 import numpy as np
 import pytest
 import torch
@@ -12,7 +13,8 @@ from sem_tpu.mesh import Grid2D as JGrid2D
 from sem_tpu.ops import apply_coupled_system_pallas, apply_system_pallas
 from sem_tpu_torch import operators as tops
 from sem_tpu_torch.mesh import Grid2D
-from sem_tpu_torch.ops import _build, kernels
+from sem_tpu_torch.ops import _build, kernels, sharded
+from sem_tpu_torch.parallel import row_strips
 
 from tests.torch_parity import one_torch_thread, rel_err, t32, t64  # noqa: F401
 
@@ -103,7 +105,7 @@ def test_cpu_dispatch_never_builds_or_counts(monkeypatch):
     assert torch.equal(out, ref)
     kernels.apply_coupled_system_kernel(grid, t32(q), t32(u), t32(v),
                                         tuple(map(t32, jac)), mbt, 3.0)
-    assert kernels.LAUNCHES == {"apply_system": 0, "apply_coupled_system": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
 @pytest.mark.cuda
@@ -138,3 +140,52 @@ def test_cuda_kernels_match_plain(P, Ne):
     with pytest.raises(TypeError):
         kernels.apply_system_kernel(grid, *(c(a).double() for a in (u, v, w)),
                                     7.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Ne,R", [(4, 8, 2), (4, 8, 4), (16, 64, 2)])
+def test_cuda_strip_kernels_match_plain(P, Ne, R):
+    """Kernels B3/B4 on each of R row strips (halos cut from the full field)
+    against their plain versions on the card (f32, atol = 2e-5·max|ref|)
+    and, concatenated, against B1/B2 (same loop order: equal bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    grid = Grid2D(P, Ne, Ne, 1.0, 1.3)
+    u, v, w, q, jac, mb = _inputs(grid, 26)
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    u, v, w, q, jac = c(u), c(v), c(w), c(q), tuple(map(c, jac))
+    mb = torch.as_tensor(mb, device=dev)
+    n0 = dict(kernels.LAUNCHES)
+    b3, b4 = [], []
+    for rows in row_strips(grid.Ngx, R, P):
+        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+        a3 = (grid, rows, u[sl], v[sl],
+              sharded.strip_with_halo(grid, rows, w), 7.5)
+        a4 = (grid, rows, sharded.strip_with_halo(grid, rows, q, 3), u[sl],
+              v[sl], tuple(j[sl] for j in jac), mb[sl], 37.0)
+        for fn, pfn, a, out in (
+                (sharded.apply_system_sharded,
+                 sharded.apply_system_sharded_plain, a3, b3),
+                (sharded.apply_coupled_system_sharded,
+                 sharded.apply_coupled_system_sharded_plain, a4, b4)):
+            got, ref = fn(*a), pfn(*a)
+            torch.cuda.synchronize()
+            assert float((got - ref).abs().max()) <= \
+                2e-5 * float(ref.abs().max())
+            out.append(got.reshape(-1, sl.stop - sl.start))
+    assert torch.equal(torch.cat(b3, 1).reshape(-1),
+                       kernels.apply_system_kernel(grid, u, v, w, 7.5))
+    assert torch.equal(torch.cat(b4, 1).reshape(-1),
+                       kernels.apply_coupled_system_kernel(
+                           grid, q, u, v, jac, mb, 37.0))
+    assert kernels.LAUNCHES["apply_system_sharded"] == \
+        n0["apply_system_sharded"] + R
+    assert kernels.LAUNCHES["apply_coupled_system_sharded"] == \
+        n0["apply_coupled_system_sharded"] + R
+    with pytest.raises(TypeError):
+        sharded.apply_system_sharded(*((a.double() if torch.is_tensor(a)
+                                        else a) for a in a3))

@@ -9,63 +9,116 @@
 // 128×128 MXU; none of that carries over here.
 //
 // What bounds it on the H100.  Per node it reads 3 fields (u, v, w) and
-// writes 1: 16 bytes of device traffic against 4·(2P+1) multiply-adds (132
-// at P=16, 264 flops), ~16 flop/byte, close to the card's f32 CUDA-core
-// balance (67 TFLOP/s over 3.35 TB/s ≈ 20).  An ideal apply at p16 64×64
-// (1.05 M nodes) therefore takes ~5 µs by either bound.  In this design each
-// node also issues 2·(2P+1) loads of w; they overlap their neighbours' and
-// are served from L1/L2, and that load traffic (~280 MB at p16) is what
-// bounds the kernel in practice.
+// writes 1: 16 bytes of device traffic, 4.2 MB at P16 32×32 (263,169 nodes,
+// its main-path shape), 1.34 µs at 3.35 TB/s with the band coefficients;
+// the structurally nonzero taps (~18 per direction and node at P16: 17 in
+// an element, 33 on an interface row) of its 4 band sums are ~0.04 GFLOP,
+// under 1 µs at 67 TFLOP/s f32.  So bytes bound it.  Measured by
+// chip_smoke.py phase 4 on an NVIDIA H100 80GB HBM3 at 700.00 W: 6.55 µs of
+// device time at P16 32×32 and 15.20 µs at 64×64 (bounds 1.34 and 5.18 µs),
+// against 15.58 and 46.60 µs for the untiled design in the same run (one
+// thread per node over every tap of the band, runtime P, 2·(2P+1) loads of
+// w per node from L1; band.cuh's band_sums_strip, which the strip kernel B3
+// still runs).  What is left is not traffic: a block's chain of staging,
+// two tap phases and the epilogue, and the shared-memory reads of the tap
+// loops (one coefficient pair per tap and node, one w per tap and 4 nodes).
 //
-// Design: one thread per output node (i, j) of the row-major (Ngx, Ngy)
-// field, threadIdx.x along j, so every load of a warp (w, u, v, the
-// transposed y-band coefficients) is coalesced and the x-band coefficients of
-// row i are a broadcast.  The four band sums accumulate in f32 registers and
-// the mass/convection epilogue is applied in registers; the result is written
-// once.  A shared-memory tile with a P-wide halo, or tensor-core band blocks,
-// are later optimisations.
+// Design (tile.cuh): 32×32 output tiles of 256 threads; w with P halo rows
+// and columns, and the tile's coefficient pairs, staged once in shared
+// memory with cp.async; the y sums with lane = row and the x sums with
+// lane = column, so that the taps a warp runs (only the structurally
+// nonzero ones) are the same for its 32 lanes and every coefficient read is
+// a broadcast; one read of w feeds 4 nodes; P a template parameter for 4, 8
+// and 16, and one runtime-P instantiation for the other orders up to 64.
+// u, v and m1x are loaded into registers before the staging, so their
+// latency hides behind it.  The sums keep the untiled design's fmaf chains
+// (ascending taps) and the epilogue is tile.cuh's system_node, so the bits
+// are the untiled design's.
 #include <cuda_runtime.h>
 
-#include "band.cuh"
+#include "tile.cuh"
 
 namespace {
 
-__global__ void apply_system_kernel(
+using namespace sem_tpu_torch::tile;
+
+constexpr int NG = 4;                     // nodes per thread along a sum
+constexpr int THREADS = threads<NG>();
+
+template <int PT>
+__global__ void __launch_bounds__(THREADS) apply_system_kernel(
     float* __restrict__ out, const float* __restrict__ u,
     const float* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ kxb, const float* __restrict__ gxb,
-    const float* __restrict__ kybT, const float* __restrict__ gybT,
+    const float2* __restrict__ kgx, const float2* __restrict__ kgy,
     const float* __restrict__ m1x, const float* __restrict__ m1y,
-    float coef, int Ngx, int Ngy, int P)
+    float coef, int Ngx, int Ngy, int p_rt)
 {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
-    if (i >= Ngx || j >= Ngy) return;
-    float kx, gx, ky, gy;
-    sem_tpu_torch::band_sums(w, kxb, gxb, kybT, gybT, i, j, Ngx, Ngy, P,
-                             kx, gx, ky, gy);
-    const float mx = m1x[i], my = m1y[j];
-    const size_t n = (size_t)i * Ngy + j;
-    out[n] = (kx * my + mx * ky) + coef * (u[n] * (gx * my)
-                                           + v[n] * (mx * gy));
+    extern __shared__ float4 smem4[];
+    const int P = PT > 0 ? PT : p_rt;
+    const Layout L(reinterpret_cast<float*>(smem4), 1, P);
+    const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+    const int warp = threadIdx.x / 32, jj = threadIdx.x % 32, j = j0 + jj;
+    // the epilogue's pointwise values, loaded while the tile is staged
+    float un[NG], vn[NG], mx[NG];
+#pragma unroll
+    for (int r = 0; r < NG; ++r) {
+        const int i = min(i0 + warp * NG + r, Ngx - 1);
+        const size_t n = (size_t)i * Ngy + min(j, Ngy - 1);
+        un[r] = u[n];
+        vn[r] = v[n];
+        mx[r] = m1x[i];
+    }
+    const float* const fld[1] = {w};
+    float kx[1][NG], gx[1][NG];
+    tile_band_sums<PT, 1, NG>(L, fld, kgx, kgy, i0, j0, Ngx, Ngy, p_rt, kx,
+                              gx);
+    if (j >= Ngy) return;
+    const float my = m1y[j];
+#pragma unroll
+    for (int r = 0; r < NG; ++r) {
+        const int ii = warp * NG + r, i = i0 + ii;
+        if (i >= Ngx) break;
+        out[(size_t)i * Ngy + j] = system_node(
+            kx[0][r], gx[0][r], L.ysum(0, 0, ii, jj), L.ysum(0, 1, ii, jj),
+            mx[r], my, un[r], vn[r], coef);
+    }
+}
+
+template <int PT>
+int launch(float* out, const float* u, const float* v, const float* w,
+           const float2* kgx, const float2* kgy, const float* m1x,
+           const float* m1y, float coef, int Ngx, int Ngy, int P,
+           cudaStream_t stream)
+{
+    static int smem_set[64];
+    const size_t smem = Layout::bytes(1, P);
+    cudaError_t err = allow_smem(apply_system_kernel<PT>, smem, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((Ngy + TJ - 1) / TJ, (Ngx + TI - 1) / TI);
+    apply_system_kernel<PT><<<grid, THREADS, smem, stream>>>(
+        out, u, v, w, kgx, kgy, m1x, m1y, coef, Ngx, Ngy, P);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launches on `stream`; returns the cudaError_t of the launch (0 = success,
+// cudaErrorInvalidValue for an order outside 1..P_MAX).
 extern "C" int sem_apply_system_f32(
     void* out, const void* u, const void* v, const void* w,
-    const void* kxb, const void* gxb, const void* kybT, const void* gybT,
-    const void* m1x, const void* m1y, float coef, int Ngx, int Ngy, int P,
+    const void* kgx, const void* kgy, const void* m1x, const void* m1y,
+    float coef, int Ngx, int Ngy, int P,
     void* stream)
 {
-    const dim3 block(32, 8);
-    const dim3 grid((Ngy + block.x - 1) / block.x,
-                    (Ngx + block.y - 1) / block.y);
-    apply_system_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (float*)out, (const float*)u, (const float*)v, (const float*)w,
-        (const float*)kxb, (const float*)gxb, (const float*)kybT,
-        (const float*)gybT, (const float*)m1x, (const float*)m1y,
-        coef, Ngx, Ngy, P);
-    return (int)cudaGetLastError();
+    if (P < 1 || P > P_MAX) return (int)cudaErrorInvalidValue;
+    auto* fn = launch<0>;
+    switch (P) {
+        case 4: fn = launch<4>; break;
+        case 8: fn = launch<8>; break;
+        case 16: fn = launch<16>; break;
+        default: break;
+    }
+    return fn((float*)out, (const float*)u, (const float*)v, (const float*)w,
+              (const float2*)kgx, (const float2*)kgy, (const float*)m1x,
+              (const float*)m1y, coef, Ngx, Ngy, P, (cudaStream_t)stream);
 }

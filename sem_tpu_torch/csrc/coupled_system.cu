@@ -15,86 +15,126 @@
 //
 // What bounds it on the H100: device memory traffic.  Per node it reads 9
 // f32 fields (du, dv, dp, ul, vl, jxx, jxy, jyx, jyy) and the 1-byte mask and
-// writes 3 fields: ~49 bytes, against 12·(2P+1) multiply-adds (396 at P=16,
-// ~16 flop/byte, near the card's f32 balance).  An ideal apply at p16 64×64
-// moves ~52 MB, ~15 µs at 3.35 TB/s.  The 6·(2P+1) band taps per node hit
-// L1/L2, as in kernel B1.
+// writes 3 fields: 49 bytes, 51.5 MB at P16 64×64 (1,050,625 nodes, its
+// main-path shape), 15.53 µs at 3.35 TB/s with the band coefficients; the
+// structurally nonzero taps of the 10 band sums a node needs (2 on a
+// Dirichlet row) are ~0.4 GFLOP, ~6 µs at 67 TFLOP/s f32.  Measured by
+// chip_smoke.py phase 4 on an NVIDIA H100 80GB HBM3 at 700.00 W: 43.54 µs
+// of device time, against 159.26 µs for the untiled design in the same run
+// (one thread per node, 6·(2P+1) loads of the fields and as many of the
+// coefficients per node from L1, runtime P, every tap of the band;
+// band.cuh's band_sums_strip, which the strip kernel B4 still runs).  What
+// is left is the tap loops' shared-memory reads, the staging, and the
+// epilogue's eight pointwise loads per node.
 //
-// Design: as kernel B1 (band.cuh) — one thread per node, threadIdx.x along
-// j, coalesced loads, transposed y-band coefficients — with the band sums of
-// the three fields, the Jacobian-diagonal terms and the row mask all applied
-// in registers, so each input is read once from device memory and each
-// output written once.
+// Design: kernel B1's (tile.cuh) for the three fields at once: du, dv, dp
+// and their halos staged once in shared memory, each coefficient read feeds
+// the three fields, each read of a field's w feeds 4 nodes, only
+// structurally nonzero taps run, P a template parameter.  The sums keep
+// the untiled design's fmaf chains and the epilogue is tile.cuh's
+// coupled_node (Jacobian diagonals and row mask in registers, each
+// pointwise field read once, each output written once, coalesced), so the
+// bits are the untiled design's.
 #include <cuda_runtime.h>
 
-#include "band.cuh"
+#include "tile.cuh"
 
 namespace {
 
-__global__ void coupled_system_kernel(
+using namespace sem_tpu_torch::tile;
+
+constexpr int NG = 4;                     // nodes per thread along a sum
+constexpr int THREADS = threads<NG>();
+
+template <int PT>
+__global__ void __launch_bounds__(THREADS) coupled_system_kernel(
     float* __restrict__ out, const float* __restrict__ q,
     const float* __restrict__ ul, const float* __restrict__ vl,
     const float* __restrict__ jxx, const float* __restrict__ jxy,
     const float* __restrict__ jyx, const float* __restrict__ jyy,
     const unsigned char* __restrict__ mb,
-    const float* __restrict__ kxb, const float* __restrict__ gxb,
-    const float* __restrict__ kybT, const float* __restrict__ gybT,
+    const float2* __restrict__ kgx, const float2* __restrict__ kgy,
     const float* __restrict__ m1x, const float* __restrict__ m1y,
-    float coef, int Ngx, int Ngy, int P)
+    float coef, int Ngx, int Ngy, int p_rt)
 {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
-    if (i >= Ngx || j >= Ngy) return;
+    extern __shared__ float4 smem4[];
+    const int P = PT > 0 ? PT : p_rt;
+    const Layout L(reinterpret_cast<float*>(smem4), 3, P);
+    const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
     const size_t N = (size_t)Ngx * Ngy;
-    const float* du = q;
-    const float* dv = q + N;
-    const float* dp = q + 2 * N;
-    float kxu, gxu, kyu, gyu, kxv, gxv, kyv, gyv, kxp, gxp, kyp, gyp;
-    sem_tpu_torch::band_sums(du, kxb, gxb, kybT, gybT, i, j, Ngx, Ngy, P,
-                             kxu, gxu, kyu, gyu);
-    sem_tpu_torch::band_sums(dv, kxb, gxb, kybT, gybT, i, j, Ngx, Ngy, P,
-                             kxv, gxv, kyv, gyv);
-    sem_tpu_torch::band_sums(dp, kxb, gxb, kybT, gybT, i, j, Ngx, Ngy, P,
-                             kxp, gxp, kyp, gyp);
-    const float mx = m1x[i], my = m1y[j];
-    const size_t n = (size_t)i * Ngy + j;
-    const float dun = du[n], dvn = dv[n];
-    if (mb[n]) {
-        out[n] = dun;
-        out[N + n] = dvn;
-        out[2 * N + n] = kxp * my + mx * kyp;
-        return;
+    const float* const fld[3] = {q, q + N, q + 2 * N};
+    float kx[3][NG], gx[3][NG];
+    tile_band_sums<PT, 3, NG>(L, fld, kgx, kgy, i0, j0, Ngx, Ngy, p_rt, kx,
+                              gx);
+    const int warp = threadIdx.x / 32, jj = threadIdx.x % 32, j = j0 + jj;
+    if (j >= Ngy) return;
+    const float my = m1y[j];
+#pragma unroll
+    for (int r = 0; r < NG; ++r) {
+        const int ii = warp * NG + r, i = i0 + ii;
+        if (i >= Ngx) break;
+        float s[12];
+#pragma unroll
+        for (int f = 0; f < 3; ++f) {
+            s[4 * f] = kx[f][r];
+            s[4 * f + 1] = gx[f][r];
+            s[4 * f + 2] = L.ysum(f, 0, ii, jj);
+            s[4 * f + 3] = L.ysum(f, 1, ii, jj);
+        }
+        const float mx = m1x[i];
+        const size_t n = (size_t)i * Ngy + j;
+        const float dun = q[n], dvn = q[N + n];
+        if (mb[n]) {
+            out[n] = dun;
+            out[N + n] = dvn;
+            out[2 * N + n] = mass_k(s[8], s[10], mx, my);
+            continue;
+        }
+        coupled_node(s, mx, my, ul[n], vl[n], jxx[n], jxy[n], jyx[n], jyy[n],
+                     dun, dvn, coef, out[n], out[N + n], out[2 * N + n]);
     }
-    // mass-weighted products, as in the dense reference path
-    const float Ku = kxu * my + mx * kyu, Kv = kxv * my + mx * kyv;
-    const float gxu_ = gxu * my, gyu_ = mx * gyu;
-    const float gxv_ = gxv * my, gyv_ = mx * gyv;
-    const float uln = ul[n], vln = vl[n];
-    out[n] = Ku + coef * (uln * gxu_ + vln * gyu_)
-        + jxx[n] * dun + jxy[n] * dvn + gxp * my;
-    out[N + n] = Kv + coef * (uln * gxv_ + vln * gyv_)
-        + jyx[n] * dun + jyy[n] * dvn + mx * gyp;
-    out[2 * N + n] = gxu_ + gyv_;
+}
+
+template <int PT>
+int launch(float* out, const float* q, const float* ul, const float* vl,
+           const float* jxx, const float* jxy, const float* jyx,
+           const float* jyy, const unsigned char* mb, const float2* kgx,
+           const float2* kgy, const float* m1x, const float* m1y, float coef,
+           int Ngx, int Ngy, int P, cudaStream_t stream)
+{
+    static int smem_set[64];
+    const size_t smem = Layout::bytes(3, P);
+    cudaError_t err = allow_smem(coupled_system_kernel<PT>, smem, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((Ngy + TJ - 1) / TJ, (Ngx + TI - 1) / TI);
+    coupled_system_kernel<PT><<<grid, THREADS, smem, stream>>>(
+        out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x, m1y, coef,
+        Ngx, Ngy, P);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launches on `stream`; returns the cudaError_t of the launch (0 = success,
+// cudaErrorInvalidValue for an order outside 1..P_MAX).
 extern "C" int sem_apply_coupled_system_f32(
     void* out, const void* q, const void* ul, const void* vl,
     const void* jxx, const void* jxy, const void* jyx, const void* jyy,
-    const void* mb, const void* kxb, const void* gxb, const void* kybT,
-    const void* gybT, const void* m1x, const void* m1y, float coef,
+    const void* mb, const void* kgx, const void* kgy, const void* m1x,
+    const void* m1y, float coef,
     int Ngx, int Ngy, int P, void* stream)
 {
-    const dim3 block(32, 8);
-    const dim3 grid((Ngy + block.x - 1) / block.x,
-                    (Ngx + block.y - 1) / block.y);
-    coupled_system_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (float*)out, (const float*)q, (const float*)ul, (const float*)vl,
-        (const float*)jxx, (const float*)jxy, (const float*)jyx,
-        (const float*)jyy, (const unsigned char*)mb, (const float*)kxb,
-        (const float*)gxb, (const float*)kybT, (const float*)gybT,
-        (const float*)m1x, (const float*)m1y, coef, Ngx, Ngy, P);
-    return (int)cudaGetLastError();
+    if (P < 1 || P > P_MAX) return (int)cudaErrorInvalidValue;
+    auto* fn = launch<0>;
+    switch (P) {
+        case 4: fn = launch<4>; break;
+        case 8: fn = launch<8>; break;
+        case 16: fn = launch<16>; break;
+        default: break;
+    }
+    return fn((float*)out, (const float*)q, (const float*)ul,
+              (const float*)vl, (const float*)jxx, (const float*)jxy,
+              (const float*)jyx, (const float*)jyy, (const unsigned char*)mb,
+              (const float2*)kgx, (const float2*)kgy, (const float*)m1x,
+              (const float*)m1y, coef, Ngx, Ngy, P, (cudaStream_t)stream);
 }

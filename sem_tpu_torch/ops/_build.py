@@ -36,11 +36,11 @@ last_build_seconds = 0.0
 # value is the cudaError_t of the launch
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # out, u, v, w, kxb, gxb, kybT, gybT, m1x, m1y, coef, Ngx, Ngy, P, stream
-    "sem_apply_system_f32": [_P] * 10 + [_F, _I, _I, _I, _P],
-    # out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kxb, gxb, kybT, gybT, m1x, m1y,
-    # coef, Ngx, Ngy, P, stream
-    "sem_apply_coupled_system_f32": [_P] * 15 + [_F, _I, _I, _I, _P],
+    # out, u, v, w, kgx, kgy, m1x, m1y, coef, Ngx, Ngy, P, stream
+    "sem_apply_system_f32": [_P] * 8 + [_F, _I, _I, _I, _P],
+    # out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x, m1y, coef, Ngx,
+    # Ngy, P, stream
+    "sem_apply_coupled_system_f32": [_P] * 13 + [_F, _I, _I, _I, _P],
     # out, u, v, w_ext, kxs, gxs, kybT, gybT, m1xs, m1y, coef, r0, nrows,
     # Ngx, Ngy, P, stream
     "sem_apply_system_strip_f32": [_P] * 10 + [_F] + [_I] * 5 + [_P],

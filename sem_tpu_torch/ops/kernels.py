@@ -10,7 +10,10 @@ versions, and the dispatchers the solvers call.
 
 Both kernels read the assembled 1D operators in compact band storage
 (:func:`band_operators`), which is exact because every nonzero of the C0
-operators lies within half-band P of the diagonal (checked when built).
+operators lies within half-band P of the diagonal (checked when built), and
+run only the taps of :func:`band_tap_ranges`, outside of which every
+coefficient is a structural zero.  They take orders ``1 ≤ P ≤ 64``
+(:data:`P_MAX`, the reference's limit) and raise for others.
 
 A wrapper launches its kernel for a CUDA float32 tensor and raises for any
 other dtype on the card; a build or launch failure raises.  Only a tensor on
@@ -32,8 +35,9 @@ from sem_tpu_torch import operators as ops
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.utils.tensors import device_const
 
-__all__ = ["LAUNCHES", "band_storage", "band_operators",
-           "apply_system_kernel", "apply_system_plain", "apply_system_best",
+__all__ = ["LAUNCHES", "P_MAX", "TILE", "band_storage", "band_operators",
+           "band_tap_ranges", "tile_coefficients", "apply_system_kernel",
+           "apply_system_plain", "apply_system_best",
            "apply_coupled_system_kernel", "apply_coupled_system_plain",
            "apply_coupled_system_best"]
 
@@ -41,6 +45,13 @@ __all__ = ["LAUNCHES", "band_storage", "band_operators",
 #: versions and the dense path never add to them
 LAUNCHES = {"apply_system": 0, "apply_coupled_system": 0,
             "apply_system_sharded": 0, "apply_coupled_system_sharded": 0}
+
+#: the largest order the whole-grid kernels B1/B2 take (the reference's
+#: limit; ``P_MAX`` in ``csrc/tile.cuh``)
+P_MAX = 64
+#: rows and columns of the output tile of B1/B2 (``TI``, ``TJ`` in
+#: ``csrc/tile.cuh``)
+TILE = 32
 
 
 def band_storage(A: np.ndarray, P: int) -> np.ndarray:
@@ -61,10 +72,25 @@ def band_storage(A: np.ndarray, P: int) -> np.ndarray:
     return AB
 
 
+def band_tap_ranges(n: int, P: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per row ``i`` of an ``n``-node 1D operator of order ``P``, the band
+    taps ``t0[i] <= t < t1[i]`` (``AB[i, t] = A[i, i-P+t]``) whose
+    coefficients can be nonzero: the ``P+1`` nodes of the row's element for a
+    node inside an element (``i mod P != 0``), the ``2P+1`` nodes of both
+    elements for an interface node, cut at the grid's edges.  The formula of
+    ``tap_span`` in ``csrc/tile.cuh``."""
+    i = np.arange(n)
+    l = i % P
+    k0 = np.where(l == 0, np.maximum(0, i - P), i - l)
+    k1 = np.where(l == 0, np.minimum(n - 1, i + P), i - l + P)
+    return k0 - i + P, k1 - i + P + 1
+
+
 def band_operators(grid: Grid2D, dtype, device) -> dict:
     """Band-stored ``K1x, G1x`` (``(Ngx, 2P+1)``), transposed band-stored
-    ``K1y, G1y`` (``(2P+1, Ngy)``, the layout the kernels read coalesced)
-    and the 1D mass vectors, cached on the grid per dtype and device."""
+    ``K1y, G1y`` (``(2P+1, Ngy)``, the layout the strip kernels B3/B4 read
+    coalesced) and the 1D mass vectors; cached on the grid per dtype and
+    device."""
     P = grid.P
 
     def const(name, host):
@@ -78,6 +104,24 @@ def band_operators(grid: Grid2D, dtype, device) -> dict:
         "m1x": ops.grid_const(grid, "m1x", dtype, device),
         "m1y": ops.grid_const(grid, "m1y", dtype, device),
     }
+
+
+def tile_coefficients(grid: Grid2D, device) -> dict:
+    """The f32 coefficient tables of the tiled kernels B1/B2: the interleaved
+    pairs ``kgx[i, t] = (K1x, G1x)[i, i-P+t]`` (``(Ngx + TILE, 2P+1, 2)``)
+    and ``kgy`` of the y operators, with :data:`TILE` rows of zeros at the
+    end (a tile's reads past the grid's edge stay inside them); cached on the
+    grid per device."""
+    P = grid.P
+
+    def pairs(K, G):
+        kg = np.stack([band_storage(K, P), band_storage(G, P)], axis=-1)
+        return np.concatenate([kg, np.zeros((TILE,) + kg.shape[1:])])
+
+    return {name: device_const(grid, ("tile", name), lambda: pairs(K, G),
+                               torch.float32, device)
+            for name, K, G in (("kgx", grid.K1x, grid.G1x),
+                               ("kgy", grid.K1y, grid.G1y))}
 
 
 # ----------------------------- plain versions ----------------------------- #
@@ -154,25 +198,51 @@ def apply_coupled_system_plain(grid: Grid2D, q, ul, vl, jac, mb, coef
 def _check(name: str, tensors, shapes, dtypes):
     dev = tensors[0].device
     for t, shape, dt in zip(tensors, shapes, dtypes):
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if t.dtype != dt:
             raise TypeError(f"{name}: the CUDA kernel takes {dt}, got "
                             f"{t.dtype}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor of shape "
-                             f"{shape}, got {tuple(t.shape)}")
+        if t.device != dev or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors on {dev} "
+                             f"of shape {shape}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+_FNS = {}   # the library's C entry points, looked up once
 
 
 def _launch(name: str, fn_name: str, device, *args):
-    from sem_tpu_torch.ops import _build
+    """Call the C entry point ``fn_name`` on ``device``'s current stream
+    (the raw handle: building a ``torch.cuda.Stream`` object costs more host
+    time than the launch); raise if the launch failed."""
+    fn = _FNS.get(fn_name)
+    if fn is None:
+        from sem_tpu_torch.ops import _build
 
-    fn = getattr(_build.library(), fn_name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        fn = _FNS[fn_name] = getattr(_build.library(), fn_name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     LAUNCHES[name] += 1
+
+
+def _band_ptrs(grid: Grid2D, device) -> tuple:
+    """Device addresses of B1/B2's f32 constants (kgx, kgy, m1x, m1y),
+    cached on the grid beside the tensors that own them."""
+    cache = grid.__dict__.setdefault("_band_ptrs", {})
+    ptrs = cache.get(device)
+    if ptrs is None:
+        if not 1 <= grid.P <= P_MAX:
+            raise ValueError(f"the CUDA kernels B1/B2 take orders 1 <= P <= "
+                             f"{P_MAX}, got P={grid.P}")
+        t = tile_coefficients(grid, device)
+        c = band_operators(grid, torch.float32, device)
+        ptrs = cache[device] = (t["kgx"].data_ptr(), t["kgy"].data_ptr(),
+                                c["m1x"].data_ptr(), c["m1y"].data_ptr())
+    return ptrs
 
 
 def apply_system_kernel(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
@@ -180,15 +250,13 @@ def apply_system_kernel(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
     tensor on the CPU."""
     if w.device.type == "cpu":
         return apply_system_plain(grid, u, v, w, coef)
-    f32 = torch.float32
-    _check("apply_system", (w, u, v), [(grid.N,)] * 3, [f32] * 3)
-    c = band_operators(grid, f32, w.device)
+    f32, shape = torch.float32, (grid.N,)
+    _check("apply_system", (w, u, v), (shape,) * 3, (f32,) * 3)
     out = torch.empty_like(w)
     _launch("apply_system", "sem_apply_system_f32", w.device,
             out.data_ptr(), u.data_ptr(), v.data_ptr(), w.data_ptr(),
-            c["kxb"].data_ptr(), c["gxb"].data_ptr(), c["kybT"].data_ptr(),
-            c["gybT"].data_ptr(), c["m1x"].data_ptr(), c["m1y"].data_ptr(),
-            float(coef), grid.Ngx, grid.Ngy, grid.P)
+            *_band_ptrs(grid, w.device), float(coef), grid.Ngx, grid.Ngy,
+            grid.P)
     return out
 
 
@@ -200,15 +268,13 @@ def apply_coupled_system_kernel(grid: Grid2D, q, ul, vl, jac, mb, coef
         return apply_coupled_system_plain(grid, q, ul, vl, jac, mb, coef)
     f32, N = torch.float32, grid.N
     _check("apply_coupled_system", (q, ul, vl, *jac, mb),
-           [(3 * N,)] + [(N,)] * 7, [f32] * 7 + [torch.bool])
-    c = band_operators(grid, f32, q.device)
+           ((3 * N,),) + ((N,),) * 7, (f32,) * 7 + (torch.bool,))
     out = torch.empty_like(q)
     _launch("apply_coupled_system", "sem_apply_coupled_system_f32", q.device,
             out.data_ptr(), q.data_ptr(), ul.data_ptr(), vl.data_ptr(),
             *(j.data_ptr() for j in jac), mb.data_ptr(),
-            c["kxb"].data_ptr(), c["gxb"].data_ptr(), c["kybT"].data_ptr(),
-            c["gybT"].data_ptr(), c["m1x"].data_ptr(), c["m1y"].data_ptr(),
-            float(coef), grid.Ngx, grid.Ngy, grid.P)
+            *_band_ptrs(grid, q.device), float(coef), grid.Ngx, grid.Ngy,
+            grid.P)
     return out
 
 

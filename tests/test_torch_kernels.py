@@ -82,6 +82,58 @@ def test_f64_dispatch_takes_the_dense_path(P, Ne):
     assert torch.equal(got, dense)
 
 
+@pytest.mark.parametrize("P,Ne", [(1, 4), (2, 3), (3, 5), (4, 8), (5, 7),
+                                  (7, 5), (16, 4), (64, 2)])
+def test_band_tap_ranges_cover_every_nonzero(P, Ne):
+    """The taps the CUDA kernels B1/B2 run (``band_tap_ranges``, the formula
+    of ``tap_span`` in csrc/tile.cuh) hold every nonzero of K1x, G1x, K1y
+    and G1y; a band product over those taps alone, ascending, equals the
+    full band product bit for bit at f64 and the dense product to 1e-13;
+    and B1/B2's interleaved coefficient tables are the band storage plus
+    zero padding."""
+    grid = Grid2D(P, Ne, Ne + 1, 1.0, 1.3)
+    w = np.random.default_rng(P * Ne).standard_normal(max(grid.Ngx,
+                                                          grid.Ngy))
+    for A in (grid.K1x, grid.G1x, grid.K1y, grid.G1y):
+        n = A.shape[0]
+        t0, t1 = kernels.band_tap_ranges(n, P)
+        AB = kernels.band_storage(A, P)
+        t = np.arange(2 * P + 1)[None, :]
+        assert not np.any(AB[(t < t0[:, None]) | (t >= t1[:, None])])
+        assert np.all(t1 - t0 == np.where(np.arange(n) % P == 0,
+                                          t1 - t0, P + 1))
+        full, part = np.zeros(n), np.zeros(n)
+        for i in range(n):
+            for tt in range(2 * P + 1):
+                k = i - P + tt
+                if 0 <= k < n:
+                    full[i] += AB[i, tt] * w[k]
+                    if t0[i] <= tt < t1[i]:
+                        part[i] += AB[i, tt] * w[k]
+        assert np.array_equal(full, part)
+        dense = A @ w[:n]
+        assert np.max(np.abs(part - dense)) <= 1e-13 * np.max(np.abs(dense))
+    c = kernels.tile_coefficients(grid, torch.device("cpu"))
+    for name, K, G, n in (("kgx", grid.K1x, grid.G1x, grid.Ngx),
+                          ("kgy", grid.K1y, grid.G1y, grid.Ngy)):
+        kg = c[name].numpy()
+        assert kg.dtype == np.float32
+        assert kg.shape == (n + kernels.TILE, 2 * P + 1, 2)
+        assert np.array_equal(kg[:n, :, 0],
+                              kernels.band_storage(K, P).astype(np.float32))
+        assert np.array_equal(kg[:n, :, 1],
+                              kernels.band_storage(G, P).astype(np.float32))
+        assert not np.any(kg[n:])
+
+
+def test_kernels_refuse_orders_above_p_max():
+    """B1/B2 take 1 <= P <= 64 (the reference's limit) and say so; the check
+    is made before anything is built or launched."""
+    grid = Grid2D(kernels.P_MAX + 1, 1, 1, 1.0, 1.0)
+    with pytest.raises(ValueError, match="P <= 64"):
+        kernels._band_ptrs(grid, torch.device("cpu"))
+
+
 def test_cpu_dispatch_never_builds_or_counts(monkeypatch):
     """On the CPU the wrappers take the plain versions: no nvcc build is
     attempted and the launch counters stay 0."""
@@ -108,15 +160,21 @@ def test_cpu_dispatch_never_builds_or_counts(monkeypatch):
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
+CUDA_SIZES = [(3, 5), (5, 7), (7, 5), (4, 8), (16, 32), (16, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,Ne", [(4, 8), (7, 5), (16, 64)])
+@pytest.mark.parametrize("P,Ne", CUDA_SIZES)
 def test_cuda_kernels_match_plain(P, Ne):
     """Each CUDA kernel against its plain version on the card (f32,
-    atol = 2e-5·max|ref|); float64 on the card is refused by the kernel."""
+    atol = 2e-5·max|ref|), on grids whose sides (Ne·P+1, (Ne+1)·P+1) are
+    no multiple of the 32-node tile, at orders with (4, 16) and without a
+    compile-time kernel, with a random Dirichlet mask; float64 on the card
+    is refused by the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    grid = Grid2D(P, Ne, Ne, 1.0, 1.3)
+    grid = Grid2D(P, Ne, Ne + 1, 1.0, 1.3)
     u, v, w, q, jac, mb = _inputs(grid, 25)
 
     def c(a):
@@ -140,6 +198,36 @@ def test_cuda_kernels_match_plain(P, Ne):
     with pytest.raises(TypeError):
         kernels.apply_system_kernel(grid, *(c(a).double() for a in (u, v, w)),
                                     7.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Ne", CUDA_SIZES)
+def test_cuda_tiled_kernels_equal_untiled_design(P, Ne):
+    """The tiled kernels B1/B2 against B3/B4 on one strip (R=1), which run
+    the untiled one-thread-per-node sums over every tap: the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    grid = Grid2D(P, Ne, Ne + 1, 1.0, 1.3)
+
+    def c(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    u, v, w, q, jac, mb = _inputs(grid, 27)
+    u, v, w, q, jac = c(u), c(v), c(w), c(q), tuple(map(c, jac))
+    mb = torch.as_tensor(mb, device=dev)
+    rows = row_strips(grid.Ngx, 1, P)[0]
+    assert rows == (0, grid.Ngx)
+    assert torch.equal(
+        kernels.apply_system_kernel(grid, u, v, w, 7.5),
+        sharded.apply_system_sharded(grid, rows, u, v,
+                                     sharded.strip_with_halo(grid, rows, w),
+                                     7.5))
+    assert torch.equal(
+        kernels.apply_coupled_system_kernel(grid, q, u, v, jac, mb, 37.0),
+        sharded.apply_coupled_system_sharded(
+            grid, rows, sharded.strip_with_halo(grid, rows, q, 3), u, v, jac,
+            mb, 37.0))
 
 
 @pytest.mark.cuda

@@ -27,8 +27,9 @@ the last line):
    larger) and ``share`` (bound over device time), ``library_us`` (one
    cuSPARSE ``A @ x`` of the assembled operator as a
    ``torch.sparse_csr_tensor``, built on the card, timed like
-   ``device_us``) and ``pr1_design_us`` (the untiled design's device time
-   on the same inputs: kernel B3/B4 on one strip, R=1);
+   ``device_us``), ``strip_r1_us`` (the device time of B3/B4 on one strip,
+   R=1: the same kernel through its row-window entry point, on the same
+   inputs) and ``strip_over_whole`` (that over ``device_us``, about 1);
 5. the reference configuration: ``run`` JNK, P=4 8×8, Ra=1e3 — de Vahl Davis
    anchors u_max·RePr = 3.649 and v_max·RePr = 3.697 within 1%, ≤ 6 Newton
    iterations;
@@ -41,12 +42,13 @@ the last line):
    64×64 with R = 1, 2 and 4 strips in this process, each strip's halo cut
    from the full field: the concatenated strips against the plain strip
    versions and the f64 dense path (tolerance 2e-5·max|ref|), and against
-   B1's/B2's output, which must be the same bits (the tiled kernels keep
-   the untiled design's sums and epilogue roundings);
+   B1's/B2's output, which must be the same bits (B3/B4 are B1/B2's kernels
+   on a row window: this holds the window, halo and tile-lattice logic
+   against the whole-grid launch);
 8. B3/B4 on rank 0's strip of R=2 at P=16 64×64, and B3 also at its
-   main-path shape P=16 32×32: the measurements of phase 4 but ``host_us``
-   and ``pr1_design_us`` (the library operator is the strip's rows against
-   the haloed strip's columns);
+   main-path shape P=16 32×32: the measurements of phase 4 but
+   ``strip_r1_us`` (the library operator is the strip's rows against the
+   haloed strip's columns);
 9. the multi-process path at full size: ``run_parallel`` with the
    configuration of phase 6, two ranks started as two processes of this
    script (NCCL with one card per rank where there are two cards, gloo with
@@ -58,8 +60,8 @@ the last line):
 
 Then a JSON line with one entry per kernel at its main-path shape: ``ms``
 and ``plain_ms`` are event pairs (``call_us``, ``plain_us``), and
-``device_ms``, ``plain_device_ms``, ``library_ms`` and ``pr1_design_ms``
-CUDA-graph device times; as the last line ``{"ok": true, "device": {...}}``.
+``device_ms``, ``plain_device_ms`` and ``library_ms`` CUDA-graph device
+times; as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 import argparse
@@ -400,9 +402,8 @@ def main():
         m = {"device_us": device_us(lambda: kfn(*args)),
              "call_us": call_us(lambda: kfn(*args)),
              "plain_us": call_us(lambda: pfn(*args)),
-             "plain_device_us": device_us(lambda: pfn(*args))}
-        if not strip:
-            m["host_us"] = host_us(lambda: kfn(*args))
+             "plain_device_us": device_us(lambda: pfn(*args)),
+             "host_us": host_us(lambda: kfn(*args))}
         m["bound_us"], m["bound_by"] = bound_us(
             kernels, coupled, grid, rows, strip,
             pointwise[3] if coupled else None)
@@ -422,9 +423,8 @@ def main():
         return m
 
     def show(name, grid, m, **extra):
-        if "host_us" in m:
-            extra["host_us"] = f"{m['host_us']:.2f}"
         _line("timing", kernel=name, grid=grid.tag, **extra,
+              host_us=f"{m['host_us']:.2f}",
               device_us=f"{m['device_us']:.2f}",
               call_us=f"{m['call_us']:.2f}",
               plain_us=f"{m['plain_us']:.1f}",
@@ -442,10 +442,9 @@ def main():
             sname = strip_of[name]
             sa = strip_args(sname, grid, (0, grid.Ngx), a)
             sfn = strip_fns[sname][0]
-            m["pr1_design_us"] = device_us(lambda: sfn(*sa))
-            show(name, grid, m,
-                 pr1_design_us=f"{m['pr1_design_us']:.2f}",
-                 device_over_pr1=f"{m['device_us'] / m['pr1_design_us']:.3f}")
+            m["strip_r1_us"] = device_us(lambda: sfn(*sa))
+            show(name, grid, m, strip_r1_us=f"{m['strip_r1_us']:.2f}",
+                 strip_over_whole=f"{m['strip_r1_us'] / m['device_us']:.3f}")
             if grid is main_grid[name]:
                 report[name].update(m)
 
@@ -548,8 +547,7 @@ def main():
             a = strip_args(name, grid, rows,
                            inputs(grid, torch.float32)[whole[name]])
             m = measure(name, grid, rows, kfn, pfn, a)
-            show(name, grid, m, R=RANKS, strip_rows=f"{rows[0]}:{rows[1]}",
-                 design="untiled")
+            show(name, grid, m, R=RANKS, strip_rows=f"{rows[0]}:{rows[1]}")
             if grid is main_strip_grid[name]:
                 report[name].update(m)
 
@@ -564,12 +562,11 @@ def main():
             ("apply_coupled_system", "sem_tpu_torch/csrc/coupled_system.cu",
              "sem_tpu/ops/pallas_kernels.py:276",
              launches["apply_coupled_system"]),
-            ("apply_system_sharded",
-             "sem_tpu_torch/csrc/apply_system_strip.cu",
+            ("apply_system_sharded", "sem_tpu_torch/csrc/apply_system.cu",
              "sem_tpu/ops/pallas_kernels.py:541",
              r0["launches"]["apply_system_sharded"]),
             ("apply_coupled_system_sharded",
-             "sem_tpu_torch/csrc/coupled_system_strip.cu",
+             "sem_tpu_torch/csrc/coupled_system.cu",
              "sem_tpu/ops/pallas_kernels.py:630",
              r0["launches"]["apply_coupled_system_sharded"])):
         r = report[name]
@@ -582,9 +579,7 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": 1e-3 * r["library_us"],
                      "device_ms": 1e-3 * r["device_us"],
-                     "plain_device_ms": 1e-3 * r["plain_device_us"],
-                     "pr1_design_ms": 1e-3 * r.get("pr1_design_us",
-                                                   r["device_us"])})
+                     "plain_device_ms": 1e-3 * r["plain_device_us"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

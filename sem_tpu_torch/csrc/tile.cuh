@@ -1,6 +1,6 @@
-// Shared-memory tiled band sums and the pointwise epilogues of the
-// whole-grid system applies (kernels B1 and B2, apply_system.cu and
-// coupled_system.cu).
+// Shared-memory tiled band sums and the pointwise epilogues of the system
+// applies: kernels B1 and B2 on the whole grid, and B3 and B4, the same
+// kernels on one rank's row strip (apply_system.cu and coupled_system.cu).
 //
 // Coefficients.  kgx[(i*(2P+1) + t)] = (K1x[i, i-P+t], G1x[i, i-P+t]) and
 // kgy[(j*(2P+1) + t)] = (K1y[j, j-P+t], G1y[j, j-P+t]) as float2 pairs, zero
@@ -14,8 +14,20 @@
 // skipping a tap whose coefficient is an exact zero leaves an f32 sum of
 // finite terms bit for bit unchanged (the accumulator starts at +0 and can
 // never become -0), and the taps that are run go in ascending order into one
-// fmaf chain per sum, as in band.cuh's band_sums_strip.  So the sums here are
-// the bits of the untiled design, which the row-strip kernels B3/B4 run.
+// fmaf chain per sum, as in the untiled design these kernels first had (one
+// thread per node over every tap of the band).  So the sums keep that
+// design's bits.
+//
+// Row window (Window).  A launch computes output rows [r0, r1): the whole
+// grid, or one rank's row strip.  The input fields are a buffer whose first
+// row is grid row g_in: the whole field (g_in = 0) or the strip with P halo
+// rows per side (g_in = r0 - P, as the halo exchange delivers it); rows
+// outside the buffer or the grid are staged as zeros.  The pointwise fields
+// and the outputs hold the window's rows alone.  Tiles stay on the global
+// TI-row lattice (the host passes the first tile row, ⌊r0/TI⌋): the
+// compile-time tap loops below need a warp's nodes to lie in one element,
+// which holds only for a tile that starts at a multiple of TI.  A tile that
+// two windows share is computed by both, each writing its own rows.
 //
 // One block of threads<NG>() threads owns a TI × TJ tile of output nodes.
 //   1. It stages each input field's tile with P halo rows (sx, for the x
@@ -55,6 +67,23 @@ constexpr int P_MAX = 64;               // the reference's limit
 // Threads of a block: TI/NG warps of NG rows (x sums) or columns (y sums).
 template <int NG>
 __host__ __device__ constexpr int threads() { return 32 * TI / NG; }
+
+// The rows a launch computes and the rows its input buffer holds (see
+// above); tile row blockIdx.y starts at grid row (tile0 + blockIdx.y)·TI.
+struct Window {
+    int r0, r1, g_in, tile0;
+
+    // one past the grid row of the input buffer's last row
+    __host__ __device__ int in_end() const { return r1 + (r0 - g_in); }
+
+    // whether ntiles tile rows from tile0 cover the output rows, which lie
+    // in an Ngx-row grid
+    __host__ bool covered(int ntiles, int Ngx) const
+    {
+        return 0 <= r0 && r0 < r1 && r1 <= Ngx && 0 <= tile0
+            && tile0 * TI <= r0 && (tile0 + ntiles) * TI >= r1;
+    }
+};
 
 // First and last column k of row i (of an n-node 1D grid) whose coefficient
 // can be nonzero.  Mirrored by sem_tpu_torch.ops.kernels.band_tap_ranges.
@@ -213,20 +242,23 @@ __device__ __forceinline__ void line_sums(
     }
 }
 
-// Steps 1-3 above for the tile at (i0, j0), ending with a barrier.  Returns
-// in kx/gx the x sums of this thread's nodes (i0 + warp*NG + g, j0 + lane);
-// their y sums are L.ysum(f, 0/1, warp*NG + g, lane).
+// Steps 1-3 above for the tile at (i0, j0), ending with a barrier; input
+// row g of field f is fld[f] + (g - W.g_in)·Ngy.  Returns in kx/gx the x
+// sums of this thread's nodes (i0 + warp*NG + g, j0 + lane); their y sums
+// are L.ysum(f, 0/1, warp*NG + g, lane).
 template <int PT, int NF, int NG>
 __device__ __forceinline__ void tile_band_sums(
     const Layout& L, const float* const (&fld)[NF],
     const float2* __restrict__ kgx, const float2* __restrict__ kgy,
-    int i0, int j0, int Ngx, int Ngy, int p_rt,
+    const Window& W, int i0, int j0, int Ngx, int Ngy, int p_rt,
     float (&kx)[NF][NG], float (&gx)[NF][NG])
 {
     constexpr int NWARP = TI / NG;
     const int P = PT > 0 ? PT : p_rt;
     const int nb = 2 * P + 1;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    // the input rows that are staged; every other row is staged as zeros
+    const int g_lo = max(0, W.g_in), g_hi = min(Ngx, W.in_end());
 
     // ---- 1. stage (warps over rows, lanes along them) ----
     {
@@ -246,18 +278,21 @@ __device__ __forceinline__ void tile_band_sums(
 #pragma unroll 4
             for (int a = warp; a < TI + 2 * P; a += NWARP) {
                 const int i = i0 - P + a;
-                const bool ok = i >= 0 && i < Ngx && j < Ngy;
+                const bool ok = i >= g_lo && i < g_hi && j < Ngy;
                 cp_async4(sx + a * TJ,
-                          ok ? fld[f] + (size_t)i * Ngy + j : fld[f], ok);
+                          ok ? fld[f] + (size_t)(i - W.g_in) * Ngy + j
+                             : fld[f], ok);
             }
             for (int ii = warp; ii < TI; ii += NWARP) {
                 const int i = i0 + ii;
+                const bool row_ok = i >= g_lo && i < g_hi;
                 float* sy = L.sy + f * TI * L.syp + ii * L.syp;
-                const float* row = fld[f] + (size_t)i * Ngy;
+                const float* row =
+                    fld[f] + (size_t)(row_ok ? i - W.g_in : 0) * Ngy;
 #pragma unroll
                 for (int b = lane; b < TJ + 2 * P; b += 32) {
                     const int jb = j0 - P + b;
-                    const bool ok = i < Ngx && jb >= 0 && jb < Ngy;
+                    const bool ok = row_ok && jb >= 0 && jb < Ngy;
                     cp_async4(sy + b, ok ? row + jb : fld[f], ok);
                 }
             }
@@ -287,11 +322,9 @@ __device__ __forceinline__ void tile_band_sums(
 
 // The epilogues take the four band sums of a node and its pointwise values.
 // Every rounding is written out (__fmul_rn and __fmaf_rn are never
-// contracted or reassociated), in the order in which nvcc contracts the
-// same expressions in the row-strip kernels (apply_system_strip.cu,
-// coupled_system_strip.cu), which B1/B2 first had: written as plain
-// expressions, the tiled kernels were contracted otherwise (1-ulp
-// differences).
+// contracted or reassociated), in the order in which nvcc contracted the
+// plain expressions of the untiled design: written as plain expressions,
+// the tiled kernels were contracted otherwise (1-ulp differences).
 
 // Mass-weighted stiffness K w = (K1x W)·m1y + m1x·(W K1yᵀ) at one node.
 __device__ __forceinline__ float mass_k(float kx, float ky, float mx,

@@ -41,12 +41,12 @@ _SIGNATURES = {
     # out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x, m1y, coef, Ngx,
     # Ngy, P, stream
     "sem_apply_coupled_system_f32": [_P] * 13 + [_F, _I, _I, _I, _P],
-    # out, u, v, w_ext, kxs, gxs, kybT, gybT, m1xs, m1y, coef, r0, nrows,
+    # out, u, v, w_ext, kgx, kgy, m1x, m1y, coef, r0, nrows, tile0, ntiles,
     # Ngx, Ngy, P, stream
-    "sem_apply_system_strip_f32": [_P] * 10 + [_F] + [_I] * 5 + [_P],
-    # out, q_ext, ul, vl, jxx, jxy, jyx, jyy, mb, kxs, gxs, kybT, gybT, m1xs,
-    # m1y, coef, r0, nrows, Ngx, Ngy, P, stream
-    "sem_apply_coupled_system_strip_f32": [_P] * 15 + [_F] + [_I] * 5 + [_P],
+    "sem_apply_system_strip_f32": [_P] * 8 + [_F] + [_I] * 7 + [_P],
+    # out, q_ext, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x, m1y, coef,
+    # r0, nrows, tile0, ntiles, Ngx, Ngy, P, stream
+    "sem_apply_coupled_system_strip_f32": [_P] * 13 + [_F] + [_I] * 7 + [_P],
 }
 
 

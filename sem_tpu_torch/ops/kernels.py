@@ -9,11 +9,13 @@ versions, and the dispatchers the solvers call.
   ``apply_coupled_system_pallas``).
 
 Both kernels read the assembled 1D operators in compact band storage
-(:func:`band_operators`), which is exact because every nonzero of the C0
+(:func:`tile_coefficients`), which is exact because every nonzero of the C0
 operators lies within half-band P of the diagonal (checked when built), and
 run only the taps of :func:`band_tap_ranges`, outside of which every
 coefficient is a structural zero.  They take orders ``1 ≤ P ≤ 64``
-(:data:`P_MAX`, the reference's limit) and raise for others.
+(:data:`P_MAX`, the reference's limit) and raise for others.  The row-strip
+kernels B3/B4 of :mod:`sem_tpu_torch.ops.sharded` are the same kernels on a
+row window, launched on the tiles of :func:`row_window_tiles`.
 
 A wrapper launches its kernel for a CUDA float32 tensor and raises for any
 other dtype on the card; a build or launch failure raises.  Only a tensor on
@@ -36,7 +38,8 @@ from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.utils.tensors import device_const
 
 __all__ = ["LAUNCHES", "P_MAX", "TILE", "band_storage", "band_operators",
-           "band_tap_ranges", "tile_coefficients", "apply_system_kernel",
+           "band_tap_ranges", "tile_coefficients", "row_window_tiles",
+           "apply_system_kernel",
            "apply_system_plain", "apply_system_best",
            "apply_coupled_system_kernel", "apply_coupled_system_plain",
            "apply_coupled_system_best"]
@@ -46,10 +49,10 @@ __all__ = ["LAUNCHES", "P_MAX", "TILE", "band_storage", "band_operators",
 LAUNCHES = {"apply_system": 0, "apply_coupled_system": 0,
             "apply_system_sharded": 0, "apply_coupled_system_sharded": 0}
 
-#: the largest order the whole-grid kernels B1/B2 take (the reference's
-#: limit; ``P_MAX`` in ``csrc/tile.cuh``)
+#: the largest order the kernels B1-B4 take (the reference's limit;
+#: ``P_MAX`` in ``csrc/tile.cuh``)
 P_MAX = 64
-#: rows and columns of the output tile of B1/B2 (``TI``, ``TJ`` in
+#: rows and columns of the output tile of B1-B4 (``TI``, ``TJ`` in
 #: ``csrc/tile.cuh``)
 TILE = 32
 
@@ -88,9 +91,10 @@ def band_tap_ranges(n: int, P: int) -> tuple[np.ndarray, np.ndarray]:
 
 def band_operators(grid: Grid2D, dtype, device) -> dict:
     """Band-stored ``K1x, G1x`` (``(Ngx, 2P+1)``), transposed band-stored
-    ``K1y, G1y`` (``(2P+1, Ngy)``, the layout the strip kernels B3/B4 read
-    coalesced) and the 1D mass vectors; cached on the grid per dtype and
-    device."""
+    ``K1y, G1y`` (``(2P+1, Ngy)``) and the 1D mass vectors; cached on the
+    grid per dtype and device.  The plain versions read the band tables (no
+    kernel does: the kernels read :func:`tile_coefficients`), the kernels
+    the mass vectors."""
     P = grid.P
 
     def const(name, host):
@@ -107,7 +111,7 @@ def band_operators(grid: Grid2D, dtype, device) -> dict:
 
 
 def tile_coefficients(grid: Grid2D, device) -> dict:
-    """The f32 coefficient tables of the tiled kernels B1/B2: the interleaved
+    """The f32 coefficient tables of the tiled kernels B1-B4: the interleaved
     pairs ``kgx[i, t] = (K1x, G1x)[i, i-P+t]`` (``(Ngx + TILE, 2P+1, 2)``)
     and ``kgy`` of the y operators, with :data:`TILE` rows of zeros at the
     end (a tile's reads past the grid's edge stay inside them); cached on the
@@ -123,6 +127,15 @@ def tile_coefficients(grid: Grid2D, device) -> dict:
             for name, K, G in (("kgx", grid.K1x, grid.G1x),
                                ("kgy", grid.K1y, grid.G1y))}
 
+
+def row_window_tiles(r0: int, r1: int) -> tuple[int, int]:
+    """First tile row and number of tile rows of a launch of B1-B4 on grid
+    rows ``r0..r1-1`` (``Window`` in ``csrc/tile.cuh``).  The tiles stay on
+    the global :data:`TILE`-row lattice, where the compile-time tap loops
+    find a warp's nodes inside one element; a strip that starts inside a
+    tile shares it with the strip before it, each writing its own rows."""
+    t0 = r0 // TILE
+    return t0, (r1 - 1) // TILE - t0 + 1
 
 # ----------------------------- plain versions ----------------------------- #
 def _band_products(grid: Grid2D, Fs: torch.Tensor, rows=None):
@@ -230,13 +243,13 @@ def _launch(name: str, fn_name: str, device, *args):
 
 
 def _band_ptrs(grid: Grid2D, device) -> tuple:
-    """Device addresses of B1/B2's f32 constants (kgx, kgy, m1x, m1y),
-    cached on the grid beside the tensors that own them."""
+    """Device addresses of the f32 constants of B1-B4 (kgx, kgy, m1x,
+    m1y), cached on the grid beside the tensors that own them."""
     cache = grid.__dict__.setdefault("_band_ptrs", {})
     ptrs = cache.get(device)
     if ptrs is None:
         if not 1 <= grid.P <= P_MAX:
-            raise ValueError(f"the CUDA kernels B1/B2 take orders 1 <= P <= "
+            raise ValueError(f"the CUDA kernels B1-B4 take orders 1 <= P <= "
                              f"{P_MAX}, got P={grid.P}")
         t = tile_coefficients(grid, device)
         c = band_operators(grid, torch.float32, device)

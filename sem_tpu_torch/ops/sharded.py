@@ -2,11 +2,11 @@
 exchange that feeds them, and the strip helpers of the decomposed Krylov
 chunks.
 
-* **B3** ``apply_system_sharded``: rows ``r0..r1-1`` of kernel B1's output
-  (``csrc/apply_system_strip.cu``; replaces
+* **B3** ``apply_system_sharded``: rows ``r0..r1-1`` of kernel B1's output,
+  by B1's kernel on a row window (``csrc/apply_system.cu``; replaces
   ``sem_tpu.ops.pallas_kernels.apply_system_pallas_sharded``).
 * **B4** ``apply_coupled_system_sharded``: the same for kernel B2
-  (``csrc/coupled_system_strip.cu``; replaces
+  (``csrc/coupled_system.cu``; replaces
   ``apply_coupled_system_pallas_sharded``).
 
 Both read the strip of their Krylov field(s) with ``P`` halo rows on each
@@ -28,8 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from sem_tpu_torch.mesh import Grid2D
-from sem_tpu_torch.ops.kernels import (_check, _coupled_plain, _launch,
-                                       _system_plain, band_operators)
+from sem_tpu_torch.ops.kernels import (_band_ptrs, _check, _coupled_plain,
+                                       _launch, _system_plain,
+                                       row_window_tiles)
 from sem_tpu_torch.parallel.sharding import row_strips
 
 __all__ = ["COLLECTIVES", "RowStrips", "all_reduce", "strip_with_halo",
@@ -129,13 +130,6 @@ def apply_coupled_system_sharded_plain(grid: Grid2D, rows, q_ext, ul, vl,
 
 
 # -------------------------------- wrappers -------------------------------- #
-def _strip_consts(grid: Grid2D, rows, device):
-    c = band_operators(grid, torch.float32, device)
-    r0, r1 = rows
-    return (c["kxb"][r0:r1], c["gxb"][r0:r1], c["kybT"], c["gybT"],
-            c["m1x"][r0:r1], c["m1y"])
-
-
 def apply_system_sharded(grid: Grid2D, rows, u, v, w_ext, coef
                          ) -> torch.Tensor:
     """Kernel B3 on CUDA tensors (float32 only); the plain version for
@@ -149,9 +143,9 @@ def apply_system_sharded(grid: Grid2D, rows, u, v, w_ext, coef
     out = torch.empty_like(u)
     _launch("apply_system_sharded", "sem_apply_system_strip_f32",
             w_ext.device, out.data_ptr(), u.data_ptr(), v.data_ptr(),
-            w_ext.data_ptr(),
-            *(t.data_ptr() for t in _strip_consts(grid, rows, w_ext.device)),
-            float(coef), r0, r1 - r0, grid.Ngx, grid.Ngy, grid.P)
+            w_ext.data_ptr(), *_band_ptrs(grid, w_ext.device), float(coef),
+            r0, r1 - r0, *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy,
+            grid.P)
     return out
 
 
@@ -168,11 +162,11 @@ def apply_coupled_system_sharded(grid: Grid2D, rows, q_ext, ul, vl, jac, mb,
     _check("apply_coupled_system_sharded", (q_ext, ul, vl, *jac, mb),
            [(3 * (n + 2 * grid.P * grid.Ngy),)] + [(n,)] * 7,
            [f32] * 7 + [torch.bool])
-    out = torch.empty(3 * n, dtype=f32, device=q_ext.device)
+    out = q_ext.new_empty(3 * n)
     _launch("apply_coupled_system_sharded",
             "sem_apply_coupled_system_strip_f32", q_ext.device,
             out.data_ptr(), q_ext.data_ptr(), ul.data_ptr(), vl.data_ptr(),
             *(j.data_ptr() for j in jac), mb.data_ptr(),
-            *(t.data_ptr() for t in _strip_consts(grid, rows, q_ext.device)),
-            float(coef), r0, r1 - r0, grid.Ngx, grid.Ngy, grid.P)
+            *_band_ptrs(grid, q_ext.device), float(coef), r0, r1 - r0,
+            *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy, grid.P)
     return out

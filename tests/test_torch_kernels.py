@@ -1,8 +1,9 @@
 """Port parity, kernel layer: the plain PyTorch versions of kernels B1/B2
 against ``sem_tpu``'s Pallas kernels (interpret mode, as tests/test_pallas.py
-runs them), the dispatch rules of ``sem_tpu_torch.ops.kernels``, and — on a
-CUDA card only — each CUDA kernel (B1-B4) against its plain version.  The
-strip kernels B3/B4 are held against JAX in tests/test_torch_parallel.py."""
+runs them), the dispatch rules and row-window launch geometry of
+``sem_tpu_torch.ops.kernels``, and — on a CUDA card only — each CUDA kernel
+(B1-B4) against its plain version.  The strip kernels' plain versions are
+held against JAX in tests/test_torch_parallel.py."""
 import numpy as np
 import pytest
 import torch
@@ -134,6 +135,35 @@ def test_kernels_refuse_orders_above_p_max():
         kernels._band_ptrs(grid, torch.device("cpu"))
 
 
+@pytest.mark.parametrize("Ngx,R,P", [(33, R, 4) for R in range(1, 9)] + [
+    (281, 3, 4), (1025, 2, 16), (1025, 4, 16), (36, 3, 7)])
+def test_row_window_tiles_cover_each_strip(Ngx, R, P):
+    """The tile rows that B1-B4 launch on each strip of ``row_strips``
+    (``row_window_tiles``; tile row k starts at grid row k·TILE): the first
+    is the lattice tile that holds the strip's first row, never a tile
+    started at that row; together they write each of the strip's rows once,
+    and each writes at least one; and every input row that a written row's
+    nonzero taps read (``band_tap_ranges``) lies inside the strip's buffer
+    ``[r0-P, r1+P)`` and inside its tile's staged rows, the tile with ``P``
+    halo rows."""
+    T = kernels.TILE
+    t0, t1 = kernels.band_tap_ranges(Ngx, P)
+    for r0, r1 in row_strips(Ngx, R, P):
+        first, n = kernels.row_window_tiles(r0, r1)
+        assert first * T == r0 - r0 % T and n >= 1
+        written = np.zeros(Ngx, int)
+        for s in range(first * T, (first + n) * T, T):
+            lo, hi = max(s, r0), min(s + T, r1)
+            assert lo < hi
+            written[lo:hi] += 1
+            for i in range(lo, hi):
+                k0, k1 = i - P + t0[i], i - P + t1[i]   # rows [k0, k1)
+                assert r0 - P <= k0 and k1 <= r1 + P
+                assert s - P <= k0 and k1 <= s + T + P
+        assert np.all(written[r0:r1] == 1)
+        assert not written[:r0].any() and not written[r1:].any()
+
+
 def test_cpu_dispatch_never_builds_or_counts(monkeypatch):
     """On the CPU the wrappers take the plain versions: no nvcc build is
     attempted and the launch counters stay 0."""
@@ -202,9 +232,10 @@ def test_cuda_kernels_match_plain(P, Ne):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,Ne", CUDA_SIZES)
-def test_cuda_tiled_kernels_equal_untiled_design(P, Ne):
-    """The tiled kernels B1/B2 against B3/B4 on one strip (R=1), which run
-    the untiled one-thread-per-node sums over every tap: the same bits."""
+def test_cuda_row_window_r1_equals_whole_grid(P, Ne):
+    """B3/B4 on one strip (R=1: the whole grid through the row-window entry
+    point, with P zero halo rows) against B1/B2: the same kernel, the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -231,11 +262,16 @@ def test_cuda_tiled_kernels_equal_untiled_design(P, Ne):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,Ne,R", [(4, 8, 2), (4, 8, 4), (16, 64, 2)])
+@pytest.mark.parametrize("P,Ne,R", [(4, 8, 2), (4, 8, 4), (16, 64, 2),
+                                    (3, 5, 3), (7, 5, 2), (16, 32, 4),
+                                    (4, 8, 3)])
 def test_cuda_strip_kernels_match_plain(P, Ne, R):
     """Kernels B3/B4 on each of R row strips (halos cut from the full field)
     against their plain versions on the card (f32, atol = 2e-5·max|ref|)
-    and, concatenated, against B1/B2 (same loop order: equal bits)."""
+    and, concatenated, against B1/B2 (the same kernel: equal bits).  The
+    cases take compile-time (4, 16) and runtime (3, 7) orders, and strips
+    that start inside an element and inside a 32-row tile (R=3 at P4 8×8:
+    rows 11 and 22; R=4 at P16 32×32: rows 129, 257, 385)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")

@@ -58,13 +58,40 @@ the last line):
    the u-anchor 3.6531 ± 1e-3.  Rank 0 then times one halo exchange, one
    full-field all-gather and one all-reduce at the NS chunk's shapes.
 
-Then a JSON line with one entry per kernel at its main-path shape: ``ms``
-and ``plain_ms`` are event pairs (``call_us``, ``plain_us``), and
-``device_ms``, ``plain_device_ms`` and ``library_ms`` CUDA-graph device
-times; as the last line ``{"ok": true, "device": {...}}``.
+10. ``solve_continued`` at full width (the grids and tolerance of phase 6),
+    once with the default halving ladder P4→P8→P16 and once with
+    ``ladder=[(4,4),(16,16)]``: per level the build wait (what the worker
+    thread did not hide), the solve wall and the stats; the total wall beside
+    phase 6's direct wall; B1's and B2's launches must be > 0, the residual
+    meet atol and the u-anchor 3.6531 ± 1e-3;
+11. pseudo-transient continuation at full width: ``build_coupled(mode="PTC")``
+    on the same grids at Ra=1e5, from zero, coupled RMS 1e-8: steps, stats,
+    coupled GMRES iterations, final Δt, wall, the host time inside the two
+    disciplines' ``solve_linear``, B1/B2 launches (> 0); the residual must
+    meet atol and the centerline anchors u_max·RePr (on x=1/2) and
+    v_max·RePr (on y=1/2) the de Vahl Davis values 34.73 and 68.59 within
+    1 %;
+12. the flexible chunks at full width: phase 11 with ``velo_inner=5`` (every
+    NS preconditioner application runs 5 GMRES steps on the true velocity
+    Jacobian, kernel B2 again): the same requirements, the flexible-retry and
+    f64-fallback counters, and B2 launches per coupled GMRES iteration, which
+    must exceed phase 11's;
+13. checkpoint round trip: phase 11's march under a ``time_budget_s`` that
+    trips it part-way; exactly that ``RuntimeError`` is caught, the ``.npz``
+    is loaded, and a new march resumed from it with the stored ``ptc_dt``
+    must converge to the same anchors.
+
+Then the wall of every phase and the total; a JSON line with one entry per
+kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
+(``call_us``, ``plain_us``), ``device_ms``, ``plain_device_ms`` and
+``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
+(B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
+phases 10–12; as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 import argparse
+import contextlib
+import io
 import json
 import os
 import socket
@@ -82,11 +109,34 @@ NORTH_STAR = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=16, N_ex_cd=32, N_ey_cd=32,
                   mtol_nonlin=1e-8, iprint=False)
 RANKS = 2            # phase 9
 RANK_TIMEOUT_S = 600
+# phases 11-13: the grids and tolerance of the main path at Ra=1e5
+PTC_RA1E5 = dict(NORTH_STAR, Ra=1e5, mode="PTC")
+# de Vahl Davis (1983): u_max·RePr on x=1/2, v_max·RePr on y=1/2, by Ra
+DE_VAHL_DAVIS = {1e5: (34.73, 68.59), 1e6: (64.63, 219.36)}
 
 
 def _line(tag, **kw):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
+
+
+class Walls:
+    """Wall seconds per phase: ``mark(name)`` closes the phase that ran
+    since the previous mark."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.phases = {}
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.phases[name] = round(now - self.last, 2)
+        self.last = now
+
+    def show(self):
+        _line("walls", **self.phases,
+              total=f"{time.perf_counter() - self.t0:.2f}")
+
 
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -298,6 +348,7 @@ def main():
     from sem_tpu_torch.parallel import row_strips
 
     dev = torch.device("cuda")
+    walls = Walls()
 
     # ---- 1. device and build ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -340,6 +391,8 @@ def main():
         scale = float(ref.double().abs().max())
         return err, scale
 
+    walls.mark("1_build")
+
     # ---- 2./3. kernels vs plain and vs the f64 dense path ----
     # the main path applies B1 on the CD grid (P16 32×32) and B2 on the NS
     # grid (P16 64×64); the JSON rows report each kernel at its own shape
@@ -367,6 +420,8 @@ def main():
                                      f"dense) exceeds 2e-5*{scale:.3e}")
             if grid is main_grid[name]:
                 report[name]["max_abs_err"] = err
+
+    walls.mark("2_3_kernel_checks")
 
     # ---- 4. timings at P=16 (inputs already on the card) ----
     strip_fns = {
@@ -448,6 +503,8 @@ def main():
             if grid is main_grid[name]:
                 report[name].update(m)
 
+    walls.mark("4_timings")
+
     # ---- 5. reference configuration (de Vahl Davis, P=4 8×8) ----
     xp, yp = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101),
                          indexing="ij")
@@ -467,6 +524,8 @@ def main():
             and stats.nonlinear_iters <= 6):
         raise AssertionError(f"de Vahl Davis anchors missed: u {umax}, "
                              f"v {vmax}, stats {stats.as_list()}")
+
+    walls.mark("5_reference")
 
     # ---- 6. the main path at full size ----
     t0 = time.perf_counter()
@@ -500,6 +559,8 @@ def main():
             f"north-star solve failed: finite={finite} residual {resid:.3e} "
             f"(atol {mda.atol_nonlin:.3e}) u_anchor {u_anchor:.4f} "
             f"launches {launches}")
+
+    walls.mark("6_north_star")
 
     # ---- 7. kernels B3/B4 on row strips, halos cut from the full field ----
     main_strip_grid = {"apply_system_sharded": g32,
@@ -540,6 +601,8 @@ def main():
                 if grid is main_strip_grid[name] and R == RANKS:
                     report[name] = {"max_abs_err": err}
 
+    walls.mark("7_strip_checks")
+
     # ---- 8. strip timings (rank 0's strip of R=2) ----
     for name, (kfn, pfn) in strip_fns.items():
         for grid in (g32, g64) if name == "apply_system_sharded" else (g64,):
@@ -551,9 +614,17 @@ def main():
             if grid is main_strip_grid[name]:
                 report[name].update(m)
 
+    walls.mark("8_strip_timings")
+
     # ---- 9. run_parallel, one process per rank ----
     ranks = run_ranks()
     r0 = ranks[0]
+    walls.mark("9_run_parallel")
+
+    # ---- 10.-13. continuation, PTC, flexible chunks, checkpoints ----
+    by_path = continuation_phases(smi, direct_s=t_build + t_solve,
+                                  walls=walls)
+    walls.show()
 
     rows = []
     for name, src, replaces, n in (
@@ -572,6 +643,8 @@ def main():
         r = report[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
+                     "launches_by_path": {path: counts.get(name, 0)
+                                          for path, counts in by_path.items()},
                      "max_abs_err": r["max_abs_err"],
                      "ms": 1e-3 * r["call_us"],
                      "plain_ms": 1e-3 * r["plain_us"],
@@ -584,6 +657,233 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def centerline_anchors(ns, s, n=2001):
+    """(u_max·RePr on x=L/2, v_max·RePr on y=L/2) of a coupled state at
+    Re=1e3, Pr=0.71: the values the de Vahl Davis benchmark reports (at high
+    Ra the domain maxima lie off the centerlines)."""
+    import numpy as np
+
+    line, half = np.linspace(0.0, 1.0, n), np.array([0.5])
+    u_line = ns._get_interpol(s.u, np.meshgrid(half, line, indexing="ij"))
+    v_line = ns._get_interpol(s.v, np.meshgrid(line, half, indexing="ij"))
+    return (float(np.max(np.abs(u_line))) * 1e3 * 0.71,
+            float(np.max(np.abs(v_line))) * 1e3 * 0.71)
+
+
+def _require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def _counted(fn):
+    """``fn()`` with the kernel launch counts set to 0 just before and read
+    just after: (result, counts, wall seconds)."""
+    import torch
+    from sem_tpu_torch.ops import kernels
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def _residual(mda, s):
+    import torch
+
+    finite = all(bool(torch.isfinite(f).all()) for f in (s.T, s.u, s.v, s.p))
+    return finite, float(torch.linalg.vector_norm(mda._residuals(s)))
+
+
+def ptc_march(tag, smi, s0=None, **kw):
+    """One PTC march of the main path's grids (``PTC_RA1E5`` updated by
+    ``kw``) on the card: one line with steps, stats, wall, the host time
+    inside the two disciplines' ``solve_linear`` (each ends in a host read,
+    so the host clock holds the device's work), the NS inner iterations and
+    B1/B2 launches; the residual must meet atol, the centerline values the
+    de Vahl Davis anchors of its Ra within 1 %, and B1 and B2 must have been
+    launched.  Returns
+    (mda, launches, wall seconds, B2 launches per coupled GMRES iteration).
+    """
+    from sem_tpu_torch.coupling import build_coupled
+
+    cfg = dict(PTC_RA1E5, **kw)
+    anchors = DE_VAHL_DAVIS[cfg["Ra"]]
+    cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **cfg)
+    spent = {"cd": 0.0, "ns": 0.0, "ns_inner_its": 0}
+    for key, comp in (("cd", mda.cd_comp), ("ns", mda.ns_comp)):
+        def timed(*a, _f=comp.solve_linear, _k=key, **k):
+            t0 = time.perf_counter()
+            out = _f(*a, **k)
+            spent[_k] += time.perf_counter() - t0
+            if _k == "ns":
+                spent["ns_inner_its"] += ns.last_schur_info.iterations
+            return out
+        comp.solve_linear = timed
+    s, n, wall = _counted(lambda: mda.solve(s0))
+    finite, resid = _residual(mda, s)
+    u_c, v_c = centerline_anchors(ns, s)
+    b2 = n["apply_coupled_system"]
+    b2_per_it = b2 / max(mda.stats.gmres_iters, 1)
+    _line(tag, Ra=f"{cfg['Ra']:.0e}", velo_inner=cfg.get("velo_inner", 0),
+          steps=mda.stats.nonlinear_iters, stats=mda.stats.as_list(),
+          gmres_iters=mda.stats.gmres_iters,
+          final_dt=f"{mda._ptc_dt_current:.3g}", wall_s=f"{wall:.2f}",
+          cd_solve_linear_s=f"{spent['cd']:.2f}",
+          ns_solve_linear_s=f"{spent['ns']:.2f}",
+          ns_inner_its=spent["ns_inner_its"],
+          residual=f"{resid:.3e}", atol=f"{mda.atol_nonlin:.3e}",
+          u_centerline=f"{u_c:.4f}", v_centerline=f"{v_c:.4f}",
+          flex_retry_count=ns.flex_retry_count,
+          f64_fallback_count=ns.f64_fallback_count,
+          besteffort_floor_count=ns.besteffort_floor_count, launches=n,
+          b2_per_gmres_it=f"{b2_per_it:.2f}",
+          b2_per_ns_inner_it=f"{b2 / max(spent['ns_inner_its'], 1):.2f}",
+          smi=f"'{smi}'")
+    _require(finite and resid <= mda.atol_nonlin
+             and all(abs(got - want) <= 0.01 * want
+                     for got, want in zip((u_c, v_c), anchors))
+             and n["apply_system"] > 0 and b2 > 0,
+             f"{tag} failed: finite={finite} residual {resid:.3e} (atol "
+             f"{mda.atol_nonlin:.3e}) centerline anchors {u_c:.4f} / "
+             f"{v_c:.4f} (want {anchors}) launches {n}")
+    return mda, n, wall, b2_per_it
+
+
+def continuation_phases(smi, direct_s=None, walls=None):
+    """Phases 10-13 (module docstring).  Returns the kernel launch counts of
+    phases 10-12 by path; any failed requirement raises."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from sem_tpu_torch.coupling import build_coupled, solve_continued
+    from sem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    walls = walls or Walls()
+    by_path = {}
+
+    # ---- 10. solve_continued at full width ----
+    cont_kw = {k: v for k, v in NORTH_STAR.items()
+               if k not in ("P_cd", "P_ns")}
+    for tag, ladder_kw in (("halving", dict(levels=2)),
+                           ("two_level", dict(ladder=[(4, 4), (16, 16)]))):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            (cd, ns, mda, s), n, wall = _counted(lambda: solve_continued(
+                1.0, 1.0, P_cd=16, P_ns=16, timing=True, device="cuda",
+                **ladder_kw, **cont_kw))
+        levels = [ln.split("level ", 1)[1].replace(" ", "_").replace(
+            ":_", ":") for ln in log.getvalue().splitlines()
+            if "[ttfs]" in ln]
+        finite, resid = _residual(mda, s)
+        u_anchor = float(s.u.abs().max()) * 1e3 * 0.71
+        by_path[f"continued_{tag}"] = n
+        _line("continued", ladder=tag, levels=levels,
+              total_s=f"{wall:.2f}", direct_s=(
+                  "not_measured" if direct_s is None else f"{direct_s:.2f}"),
+              fine_stats=mda.stats.as_list(),
+              fine_gmres_iters=mda.stats.gmres_iters,
+              residual=f"{resid:.3e}", atol=f"{mda.atol_nonlin:.3e}",
+              u_anchor=f"{u_anchor:.4f}", launches=n, smi=f"'{smi}'")
+        _require(finite and resid <= mda.atol_nonlin
+                and abs(u_anchor - 3.6531) <= 1e-3
+                and n["apply_system"] > 0 and n["apply_coupled_system"] > 0,
+                f"solve_continued ({tag}) failed: finite={finite} residual "
+                f"{resid:.3e} (atol {mda.atol_nonlin:.3e}) u_anchor "
+                f"{u_anchor:.4f} launches {n}")
+
+    # the same ladder with the host constants' disk cache off: the three
+    # levels built one after the other, then solve_continued, whose worker
+    # thread builds level i+1 while level i solves
+    cached = os.environ.get("SEM_TPU_CACHE")
+    os.environ["SEM_TPU_CACHE"] = "0"
+    try:
+        serial = []
+        for P in (4, 8, 16):
+            t0 = time.perf_counter()
+            build_coupled(1.0, 1.0, P_cd=P, P_ns=P, device="cuda", **cont_kw)
+            torch.cuda.synchronize()
+            serial.append(round(time.perf_counter() - t0, 2))
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            _, _, wall = _counted(lambda: solve_continued(
+                1.0, 1.0, P_cd=16, P_ns=16, timing=True, device="cuda",
+                levels=2, **cont_kw))
+    finally:
+        if cached is None:
+            del os.environ["SEM_TPU_CACHE"]
+        else:
+            os.environ["SEM_TPU_CACHE"] = cached
+    waits = [float(ln.split("build-wait ")[1].split("s")[0])
+             for ln in log.getvalue().splitlines() if "[ttfs]" in ln]
+    _line("continued_cold_cache", serial_build_s=serial,
+          serial_build_total_s=f"{sum(serial):.2f}",
+          threaded_build_wait_s=waits,
+          threaded_build_wait_total_s=f"{sum(waits):.2f}",
+          threaded_total_s=f"{wall:.2f}")
+    walls.mark("10_continued")
+
+    # ---- 11./12. PTC at Ra=1e5, plain and flexible chunks ----
+    mda11, by_path["ptc"], wall11, b2_plain = ptc_march(
+        "ptc", smi)
+    walls.mark("11_ptc")
+    _, by_path["ptc_velo_inner"], _, b2_flex = ptc_march(
+        "ptc_velo_inner", smi, velo_inner=5)
+    _require(b2_flex > b2_plain,
+            f"velo_inner=5 launched B2 {b2_flex:.2f} times per coupled GMRES "
+            f"iteration, no more than velo_inner=0 ({b2_plain:.2f})")
+    walls.mark("12_ptc_velo_inner")
+
+    # ---- 13. checkpoint round trip ----
+    path = os.path.join(ROOT, "build", "sem_tpu_torch", "chip_smoke_ptc.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    budget = 0.3 * wall11
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", checkpoint_path=path,
+                              time_budget_s=budget, **PTC_RA1E5)
+    try:
+        mda.solve()
+    except RuntimeError as err:
+        if "wall-clock budget exhausted" not in str(err):
+            raise
+        stopped = str(err)
+    else:
+        raise AssertionError(f"the {budget:.2f} s budget did not trip")
+    s_ck, cfg, iters, extras = load_checkpoint(
+        path, expect_config=mda.checkpoint_config, with_extras=True,
+        device="cuda")
+    _require(1 <= iters[2] < mda11.stats.nonlinear_iters
+            and extras["ptc_dt"] > 0,
+            f"checkpoint after {iters} with {extras}: {stopped}")
+    _line("checkpoint", budget_s=f"{budget:.2f}", stopped_after=iters[2],
+          iters=iters, ptc_dt=f"{extras['ptc_dt']:.4g}",
+          bytes=os.path.getsize(path))
+    resumed, _, _, _ = ptc_march("ptc_resumed", smi, s0=s_ck,
+                                 ptc_dt0=extras["ptc_dt"])
+    _require(resumed.stats.nonlinear_iters < mda11.stats.nonlinear_iters,
+            f"the resumed march took {resumed.stats.nonlinear_iters} steps, "
+            f"the whole one {mda11.stats.nonlinear_iters}")
+    walls.mark("13_checkpoint")
+    return by_path
+
+
+def ptc_ra_main(Ra):
+    """``--ptc-ra``: the card's line, then one ``velo_inner=5`` PTC march."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    ptc_march("ptc_velo_inner", smi.splitlines()[0], Ra=Ra, velo_inner=5)
 
 
 def _free_port():
@@ -747,8 +1047,14 @@ if __name__ == "__main__":
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--ptc-ra", type=float, choices=sorted(DE_VAHL_DAVIS),
+                    help="instead of the smoke run: one PTC march of the "
+                         "main path's grids at this Ra with velo_inner=5 "
+                         "(Ra=1e6 takes minutes)")
     a = ap.parse_args()
-    if a.rank is None:
+    if a.ptc_ra is not None:
+        ptc_ra_main(a.ptc_ra)
+    elif a.rank is None:
         main()
     else:
         rank_main(a.rank, a.world, a.port)

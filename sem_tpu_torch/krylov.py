@@ -1,7 +1,9 @@
-"""Matrix-free Krylov solvers on torch tensors: restarted GMRES and the
-host-orchestrated mixed-precision refinement around it.
+"""Matrix-free Krylov solvers on torch tensors: restarted GMRES, flexible
+GMRES, the host-orchestrated mixed-precision refinement around them, and the
+stochastic row-norm estimate that conditions the row-scaled flexible chunks.
 
-Counterparts of ``sem_tpu.krylov.gmres`` and ``refined_gmres_host``.  The
+Counterparts of ``sem_tpu.krylov.gmres``, ``fgmres``, ``refined_gmres_host``,
+``rownorm_estimate`` and ``rowscale_prep``.  The
 reference runs GMRES as one ``lax.while_loop`` on the device; here the loop is
 Python driving device tensors.  Every n-sized object (basis, iterate,
 residual) stays on the device in a basis buffer allocated once per solve; the
@@ -26,8 +28,46 @@ import torch
 
 from sem_tpu_torch.ops.sharded import all_reduce
 
-__all__ = ["gmres", "strip_chunk", "refined_gmres_host", "KrylovInfo",
+__all__ = ["gmres", "fgmres", "strip_chunk", "refined_gmres_host",
+           "KrylovInfo", "rownorm_estimate", "rowscale_prep",
            "DGKS_ETA", "DGKS_ETA_F64"]
+
+
+def rownorm_estimate(matvec: Callable, n: int, dtype,
+                     generator: Optional[torch.Generator] = None,
+                     probes=8, *, device="cpu") -> torch.Tensor:
+    """Stochastic row-norm estimate of a linear operator:
+    ``d_i = sqrt(mean_k (A z_k)_i²)`` over Rademacher probes ``z_k``, an
+    unbiased estimator of the squared row 2-norms.  ``diag(d)`` is the norm
+    conditioner of SEM systems, whose raw rows mix stiffness- and
+    unit-Dirichlet scales spanning ~1e7 (used by the row-scaled flexible f32
+    chunks).  Floored at ``1e-12·max(d)`` so reciprocals are safe.
+
+    :param generator: a CPU ``torch.Generator`` the ±1 probes are drawn from
+        (on the CPU, then moved to ``device``); not read when ``probes`` is a
+        tensor
+    :param probes: the number of probes, or a ``(k, n)`` tensor of ±1 probe
+        vectors to use as they are (e.g. the ones another package drew)
+    """
+    if isinstance(probes, int):
+        z = torch.randint(0, 2, (probes, n), generator=generator,
+                          dtype=torch.int8, device="cpu")
+        probes = (2 * z - 1).to(device=device, dtype=dtype)
+    acc = torch.zeros(n, dtype=dtype, device=probes.device)
+    for z in probes.to(dtype):
+        w = matvec(z)
+        acc = acc + w * w
+    d = torch.sqrt(acc / probes.shape[0])
+    return torch.maximum(d, 1e-12 * d.max())
+
+
+def rowscale_prep(r: torch.Tensor, scale, dinv: torch.Tensor):
+    """Per-pass prep of the row-scaled refinement chunks: downcast, scale by
+    the row-norm inverse, and the chunk tolerance ``scale·‖rp‖``.  Returns
+    ``(rp, atol_lp, ‖rp‖)``, the two scalars as 0-d tensors."""
+    rp = r.to(dinv.dtype) * dinv
+    rpn = torch.linalg.vector_norm(rp)
+    return rp, scale * rpn, rpn
 
 
 class KrylovInfo(NamedTuple):
@@ -68,6 +108,29 @@ def _mgs_sweep_live(V, w, k, cchunk, group=None):
         w = w - Vj.T @ hj
         hs.append(hj)
     return w, torch.cat(hs)
+
+
+def _arnoldi_column(V, w, k, cchunk, eta, eps_tiny, norm, group=None):
+    """Orthogonalize ``w`` against the live rows ``0..k`` of ``V`` (one
+    block-MGS sweep, a second one when the DGKS test asks for it), store the
+    normalized result as row ``k+1``, and return ``(hk, resweep)``: ``hk``
+    the new Hessenberg column as ``k+2`` host floats, ``resweep`` 1 if the
+    second sweep ran.  One host read, one more with the second sweep."""
+    n0 = norm(w)
+    w, h = _mgs_sweep_live(V, w, k, cchunk, group)
+    n1 = norm(w)
+    host = torch.cat([torch.stack([n0, n1]), h]).tolist()
+    hcol = host[2:]
+    hk1 = host[1]
+    resweep = 0
+    if host[1] < eta * host[0]:     # DGKS: second sweep
+        w, h2 = _mgs_sweep_live(V, w, k, cchunk, group)
+        host2 = torch.cat([norm(w)[None], h2]).tolist()
+        hk1 = host2[0]
+        hcol = [a + c for a, c in zip(hcol, host2[1:])]
+        resweep = 1
+    V[k + 1] = w / max(hk1, eps_tiny)
+    return hcol + [hk1], resweep
 
 
 def _givens(h, cs, sn, g, k):
@@ -156,21 +219,10 @@ def gmres(matvec: Callable, b: torch.Tensor,
         cs, sn = [1.0] * m, [0.0] * m
         k = 0
         while True:
-            w = matvec(precon(V[k].to(dtype)))
-            n0 = norm(w)
-            w, h = _mgs_sweep_live(V, w, k, cchunk, group)
-            n1 = norm(w)
-            host = torch.cat([torch.stack([n0, n1]), h]).tolist()
-            hcol = host[2:]
-            hk1 = host[1]
-            if host[1] < eta * host[0]:     # DGKS: second sweep
-                w, h2 = _mgs_sweep_live(V, w, k, cchunk, group)
-                host2 = torch.cat([norm(w)[None], h2]).tolist()
-                hk1 = host2[0]
-                hcol = [a + c for a, c in zip(hcol, host2[1:])]
-                nresweep += 1
-            V[k + 1] = w / max(hk1, eps_tiny)
-            hk = hcol + [hk1]
+            hk, resw = _arnoldi_column(
+                V, matvec(precon(V[k].to(dtype))), k, cchunk, eta, eps_tiny,
+                norm, group)
+            nresweep += resw
             res = _givens(hk, cs, sn, g, k)
             H[:k + 2, k] = hk
             hist[it] = res
@@ -187,6 +239,81 @@ def gmres(matvec: Callable, b: torch.Tensor,
         beta = new_cycle(x)
         # stagnation: a full cycle (or an in-cycle plateau) improved the TRUE
         # residual by < 10% — a roundoff plateau further cycles cannot beat
+        stalled = (beta > atol and beta > 0.9 * cycle_res
+                   and (kk >= m or stall_in))
+        done = beta <= atol or it >= maxiter or stalled
+        res = cycle_res = beta
+    return x, KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
+                         stalled=stalled, resweeps=nresweep)
+
+
+def fgmres(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None, *, atol: float,
+           restart: int = 20, maxiter: int = 1000, precon: Callable,
+           basis_dtype=None):
+    """Flexible GMRES(m): the right preconditioner may vary per application
+    (it may contain inner Krylov solves), so the preconditioned vectors ``Z``
+    are stored and the solution update uses them (Saad's FGMRES).
+
+    Same algorithm as ``sem_tpu.krylov.fgmres``, sharing :func:`gmres`'s
+    orthogonalization (live-chunk block-MGS, DGKS-selective second sweep),
+    Givens recurrence, in-cycle plateau exit for f32/bf16 and true-residual
+    stall rule.  ``basis_dtype`` is the storage dtype of the Arnoldi basis
+    ``V`` only: ``Z`` holds the solution update and stays in the working
+    dtype.
+
+    :return: ``(x, KrylovInfo)``
+    """
+    norm = torch.linalg.vector_norm
+    m = int(restart)
+    n = b.shape[0]
+    dtype = b.dtype
+    lowp = dtype in _LP_DTYPES
+    eta = DGKS_ETA if lowp else DGKS_ETA_F64
+    bdt = dtype if basis_dtype is None else basis_dtype
+    eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
+    atol = float(atol)
+    cchunk = min(_CHUNK, m + 1)
+    V = torch.empty((m + 1, n), dtype=bdt, device=b.device)
+    Z = torch.empty((m, n), dtype=dtype, device=b.device)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+
+    def new_cycle(x):
+        r = b - matvec(x)
+        beta = float(norm(r))
+        V[0] = r / max(beta, eps_tiny)
+        return beta
+
+    beta = new_cycle(x)
+    hist = [beta] * maxiter   # recurrence residual per iteration
+    it = nresweep = 0
+    res = cycle_res = beta
+    stalled = False
+    done = beta <= atol
+    while not done:
+        H = np.zeros((m + 1, m))
+        g = np.zeros(m + 1)
+        g[0] = beta
+        cs, sn = [1.0] * m, [0.0] * m
+        k = 0
+        while True:
+            Z[k] = precon(V[k].to(dtype))
+            hk, resw = _arnoldi_column(V, matvec(Z[k]), k, cchunk, eta,
+                                       eps_tiny, norm)
+            nresweep += resw
+            res = _givens(hk, cs, sn, g, k)
+            H[:k + 2, k] = hk
+            hist[it] = res
+            it += 1
+            stall_in = (lowp and it - 1 >= 40
+                        and res > 0.98 * hist[it - 1 - 40])
+            if res <= atol or k + 1 >= m or it >= maxiter or stall_in:
+                break
+            k += 1
+        kk = k + 1
+        y = scipy.linalg.solve_triangular(H[:kk, :kk], g[:kk], lower=False)
+        x = x + Z[:kk].T @ torch.as_tensor(y, dtype=dtype, device=b.device)
+        beta = new_cycle(x)
         stalled = (beta > atol and beta > 0.9 * cycle_res
                    and (kk >= m or stall_in))
         done = beta <= atol or it >= maxiter or stalled

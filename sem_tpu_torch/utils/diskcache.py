@@ -12,6 +12,7 @@ directory may serve both.
 from __future__ import annotations
 
 import os
+import threading
 import typing
 
 import numpy as np
@@ -44,7 +45,9 @@ def npz_cached(key: str, builder: typing.Callable[[], dict]) -> dict:
     if enabled():
         try:
             os.makedirs(cache_dir(), exist_ok=True)
-            tmp = path + f".tmp{os.getpid()}.npz"
+            # unique per process and thread: solve_continued builds the next
+            # level's solvers in a worker thread
+            tmp = path + f".tmp{os.getpid()}_{threading.get_ident()}.npz"
             np.savez(tmp, **out)
             os.replace(tmp, path)
         except OSError:

@@ -52,6 +52,10 @@ def _wind():
 
 # ------------------------- strip kernels vs JAX --------------------------- #
 GRIDS = [(8, 4), (70, 2)]   # tests/test_pallas_sharded.py:35-36, P=4
+# a PTC march that converges in 18 steps (tests/test_torch_ptc.py)
+PTC_KW = dict(Re=1e3, Ra=1e4, Pr=0.71, P_cd=3, N_ex_cd=4, N_ey_cd=4,
+              P_ns=3, N_ex_ns=8, N_ey_ns=8, mtol_nonlin=1e-8, iprint=False,
+              precon="bj", ptc_dt0=1.0)
 _JAX = {}
 
 
@@ -284,7 +288,7 @@ torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[1])
 out, cfg = sys.argv[2], json.loads(sys.argv[3])
 from sem_tpu_torch import ConvectionDiffusionSolver, NavierStokesSolver
-from sem_tpu_torch.coupling import run_parallel
+from sem_tpu_torch.coupling import build_coupled, run_parallel
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import COLLECTIVES, LAUNCHES, RowStrips, strip_with_halo
 from sem_tpu_torch.parallel import (gather_global, init_distributed,
@@ -341,6 +345,26 @@ T, u, v, s, stats = run_parallel(pts21, 1.0, 1.0, mode="JNK", device="cpu",
 np.save(f"{out}/run_rank{rank}.npy", np.stack([T, u, v]))
 res.update(stats=stats.as_list(), gmres_iters=stats.gmres_iters,
            collectives=dict(COLLECTIVES), launches=dict(LAUNCHES))
+
+# (d) PTC under the group: the sigma shift rides through the strip chunks
+reset()
+with use_group(group):
+    _, _, mda = build_coupled(1.0, 1.0, mode="PTC", device="cpu",
+                              **cfg["ptc"])
+    s = mda.solve()
+    res.update(ptc_stats=mda.stats.as_list(),
+               ptc_gmres_iters=mda.stats.gmres_iters,
+               ptc_collectives=dict(COLLECTIVES))
+    np.save(f"{out}/ptc_rank{rank}.npy", torch.stack([s.u, s.v]).numpy())
+    # (e) the flexible chunks are not decomposed
+    ns5 = NavierStokesSolver(1.0, 1.0, Re=10.0, Gr=0.0, P=4, N_ex=8, N_ey=4,
+                             iprint=[], velo_inner=5, device="cpu")
+    ns5._calc_jacobians(x[:grid.N], x[grid.N:2 * grid.N])
+    try:
+        ns5._get_update(x[:grid.N], x[:grid.N], x[:grid.N])
+        res["flex_under_group"] = "ran"
+    except NotImplementedError as err:
+        res["flex_under_group"] = str(err)
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(res, f)
 
@@ -364,7 +388,7 @@ def two_ranks(tmp_path_factory):
     ``[(json, dir)]`` per rank."""
     out = tmp_path_factory.mktemp("two_ranks")
     port = _free_port()
-    cfg = json.dumps({"cd": CD_KW, "quick": QUICK})
+    cfg = json.dumps({"cd": CD_KW, "quick": QUICK, "ptc": PTC_KW})
     procs = []
     for rank in range(2):
         env = dict(os.environ, SEM_TPU_COORDINATOR=f"127.0.0.1:{port}",
@@ -458,3 +482,23 @@ def test_two_process_run_took_the_strip_path(two_ranks):
         assert all(n > 0 for n in x["collectives"].values()), x
         assert x["launches"] == dict.fromkeys(kernels.LAUNCHES, 0)
     assert res[0]["collectives"] == res[1]["collectives"]
+
+
+def test_two_process_ptc_matches_single_process(two_ranks):
+    """(d) ``mode="PTC"`` (``velo_inner=0``) under a two-rank group against
+    the port's single-process PTC march: equal MDA stats, coupled GMRES
+    iterations within 1, u and v within 1e-6, the same in both ranks, on
+    the strip path.  (e) ``velo_inner=5`` under a group raises the
+    ``NotImplementedError`` that names its ROADMAP item."""
+    res, out = two_ranks
+    _, _, mda = build_coupled(1.0, 1.0, mode="PTC", device="cpu", **PTC_KW)
+    s = mda.solve()
+    ref = torch.stack([s.u, s.v]).numpy()
+    got = [np.load(out / f"ptc_rank{r}.npy") for r in range(2)]
+    np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_allclose(got[0], ref, atol=1e-6)
+    for x in res:
+        assert x["ptc_stats"] == mda.stats.as_list()
+        assert abs(x["ptc_gmres_iters"] - mda.stats.gmres_iters) <= 1
+        assert all(n > 0 for n in x["ptc_collectives"].values()), x
+        assert "ROADMAP deferred item 6" in x["flex_under_group"]

@@ -81,12 +81,38 @@ the last line):
     is loaded, and a new march resumed from it with the stored ``ptc_dt``
     must converge to the same anchors.
 
+14. the Schur blocks at full width, standalone NS: the lid-driven cavity
+    (``u_N=1``, ``Gr=0``) at Re=100 on NS P=16 64×64 through
+    ``NavierStokesSolver.run`` with ``linear_solver="coupled"``, once with
+    each of ``schur_precon`` ``'spectral'``, ``'pcd'`` and ``'mass'``: Newton
+    iterations, coupled GMRES inner iterations per Newton step, f32 chunks
+    (refinement passes), B2 launches (> 0), the flexible-retry and f64
+    counters, wall.  The Newton residual must meet ``mtol_newton``, u on the
+    vertical centerline the Ghia, Ghia & Shin (1982) Re=100 table within
+    2e-2, and the runs' u at those points agree within 1e-6.  Should
+    ``'mass'`` exhaust its iteration cap at this width, its line says so and
+    it runs at P=16 16×16 instead;
+15. the Uzawa linear solver at full width: the same problem with
+    ``linear_solver="uzawa"``, ``schur_precon="spectral"``,
+    ``maxiter_velo=150`` (float64, nested Krylov): Newton iterations, Schur GMRES iterations per Newton step, the
+    velocity-solve iterations (pre-solve, nested total, back-substitution),
+    wall, ms per velocity iteration; B1-B4 launches must all be 0, the
+    Newton count phase 14's ``'spectral'`` count ± 1 and u at the Ghia
+    points equal to that run's within 1e-6;
+16. ``sem_tpu_torch.assemble`` against kernel B1 at P=16 32×32: the
+    assembled ``K + Pe·(diag(u) Gx + diag(v) Gy)`` as a
+    ``torch.sparse_csr_tensor`` on the card applied to phase 2's inputs,
+    within phase 2's tolerance of the kernel's output; its nonzero count
+    beside that of phase 4's hand-built library operator.
+
+``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone.
+
 Then the wall of every phase and the total; a JSON line with one entry per
 kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 (``call_us``, ``plain_us``), ``device_ms``, ``plain_device_ms`` and
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
-phases 10–12; as the last line ``{"ok": true, "device": {...}}``.
+phases 10–12 and 14–15; as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 import argparse
@@ -113,6 +139,17 @@ RANK_TIMEOUT_S = 600
 PTC_RA1E5 = dict(NORTH_STAR, Ra=1e5, mode="PTC")
 # de Vahl Davis (1983): u_max·RePr on x=1/2, v_max·RePr on y=1/2, by Ra
 DE_VAHL_DAVIS = {1e5: (34.73, 68.59), 1e6: (64.63, 219.36)}
+# phases 14-15: the lid-driven cavity on the main path's NS grid, and Ghia,
+# Ghia & Shin (1982) Table I, u on the vertical centerline x=1/2 at Re=100
+# (Newton RMS 5e-12 with linear solves to 1e-12, so that two converged runs
+# can be held to each other at 1e-6: the near-spurious pressure modes of the
+# equal-order discretization map a residual to ~100 times itself in u, and
+# runs that stop at the solver's default RMS 1e-5, or at 1e-9, were measured
+# 4e-5 and 9e-5 apart)
+LID_CAVITY = dict(Re=100.0, Gr=0.0, P=16, N_ex=64, N_ey=64, u_N=1.0,
+                  mtol=1e-12, mtol_newton=5e-12, iprint=[])
+GHIA_Y = (0.0547, 0.1016, 0.2813, 0.4531, 0.5000, 0.7344)
+GHIA_U_RE100 = (-0.03717, -0.06434, -0.15662, -0.21090, -0.20581, 0.00332)
 
 
 def _line(tag, **kw):
@@ -351,10 +388,7 @@ def main():
     walls = Walls()
 
     # ---- 1. device and build ----
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    smi = _smi_line()
     t0 = time.perf_counter()
     _build.library()
     _line("build", seconds=f"{time.perf_counter() - t0:.2f}",
@@ -624,6 +658,9 @@ def main():
     # ---- 10.-13. continuation, PTC, flexible chunks, checkpoints ----
     by_path = continuation_phases(smi, direct_s=t_build + t_solve,
                                   walls=walls)
+
+    # ---- 14.-16. Schur blocks, Uzawa, assemble.py ----
+    by_path.update(ns_option_phases(smi, walls))
     walls.show()
 
     rows = []
@@ -871,6 +908,217 @@ def continuation_phases(smi, direct_s=None, walls=None):
     return by_path
 
 
+def lid_cavity_run(tag, smi, **kw):
+    """One standalone NS solve of ``LID_CAVITY`` (updated by ``kw``) through
+    ``NavierStokesSolver.run`` on the card, one line; the Newton residual
+    must meet ``mtol_newton`` and u at the Ghia points the table within
+    2e-2.  Returns a dict with the node count, u at the Ghia points, the
+    Newton count, the launches, the wall and the velocity iterations."""
+    import numpy as np
+    import torch
+    from sem_tpu_torch import NavierStokesSolver
+    from sem_tpu_torch.models import navier_stokes as nsmod
+
+    cfg = dict(LID_CAVITY, **kw)
+    t0 = time.perf_counter()
+    ns = NavierStokesSolver(1.0, 1.0, device="cuda", **cfg)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    steps, kept, chunks, velo = [], {}, [0], []
+    update, solution, gmres = ns._get_update, ns._get_solution, nsmod.gmres
+    solve_velo = ns._solve_velo
+
+    def counted_velo(*a):
+        out = solve_velo(*a)
+        velo.append(out[1].iterations)
+        return out
+
+    def counted_update(*a, **k):
+        # an Uzawa update's velocity solves: the pre-solve, one per Schur
+        # matvec, the back-substitution
+        del velo[:]
+        out = update(*a, **k)
+        steps.append((ns.last_schur_info.iterations,
+                      (velo[0], sum(velo[1:-1]), velo[-1]) if velo
+                      else (0, 0, 0)))
+        return out
+
+    def kept_solution(T, *a, **k):
+        kept["T"], kept["uvp"] = T, solution(T, *a, **k)
+        return kept["uvp"]
+
+    def counted_gmres(mv, b, *a, **k):
+        chunks[0] += b.dtype == torch.float32 and "x0" in k
+        return gmres(mv, b, *a, **k)
+
+    ns._get_update, ns._get_solution = counted_update, kept_solution
+    ns._solve_velo = counted_velo
+    nsmod.gmres = counted_gmres
+    pts = np.meshgrid(np.array([0.5]), np.array(GHIA_Y), indexing="ij")
+    try:
+        (u_pts, _, _), n, wall = _counted(
+            lambda: ns.run(lambda x, y: 0 * x, pts))
+    finally:
+        nsmod.gmres = gmres
+    u_ghia = np.asarray(u_pts).reshape(-1)
+    ghia_dev = float(np.max(np.abs(u_ghia - np.array(GHIA_U_RE100))))
+    u, v, p = kept["uvp"]
+    resid = ns._residual_norm(*ns._get_residuals(u, v, p, kept["T"]))
+    atol = ns._mtol_newton * (3 * ns.N) ** 0.5
+    finite = all(bool(torch.isfinite(f).all()) for f in (u, v, p))
+    pre, nested, back = (sum(s[1][i] for s in steps) for i in range(3))
+    _line(tag, grid=ns.grid.tag, N=ns.N,
+          linear_solver=cfg.get("linear_solver", "coupled"),
+          schur_precon=cfg.get("schur_precon", "spectral"),
+          newton_iters=ns._k, gmres_iters_per_step=[s[0] for s in steps],
+          gmres_iters=sum(s[0] for s in steps), f32_chunks=chunks[0],
+          velo_iters_pre=pre, velo_iters_nested=nested, velo_iters_back=back,
+          flex_retry_count=ns.flex_retry_count,
+          f64_fallback_count=ns.f64_fallback_count,
+          build_s=f"{t_build:.2f}", wall_s=f"{wall:.2f}",
+          residual=f"{resid:.3e}", atol=f"{atol:.3e}",
+          u_ghia=[round(float(x), 6) for x in u_ghia],
+          ghia_dev=f"{ghia_dev:.2e}", launches=n, smi=f"'{smi}'")
+    _require(finite and resid <= atol and ghia_dev <= 2e-2,
+             f"{tag} failed: finite={finite} residual {resid:.3e} (atol "
+             f"{atol:.3e}) deviation from Ghia {ghia_dev:.3e}")
+    return dict(N=ns.N, u_ghia=u_ghia, newton=ns._k, launches=n, wall=wall,
+                velo_iters=pre + nested + back)
+
+
+def ns_option_phases(smi, walls=None):
+    """Phases 14-16 (module docstring).  Returns the kernel launch counts of
+    phases 14-15 by path; any failed requirement raises."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from sem_tpu_torch import assemble
+    from sem_tpu_torch.mesh import Grid2D
+    from sem_tpu_torch.ops import kernels
+
+    walls = walls or Walls()
+    by_path = {}
+    failed = []     # raised together at the end: every phase prints its line
+
+    def same_answer(a, b, what):
+        diff = float(np.max(np.abs(a["u_ghia"] - b["u_ghia"])))
+        if diff > 1e-6:
+            failed.append(f"{what}: u at the Ghia points differs by "
+                          f"{diff:.3e} (> 1e-6)")
+        return diff
+
+    # ---- 14. the three Schur blocks, coupled path ----
+    runs = {}
+    for sp in ("spectral", "pcd", "mass"):
+        try:
+            runs[sp] = lid_cavity_run(f"ns_{sp}", smi, schur_precon=sp)
+        except RuntimeError as err:
+            if sp != "mass":
+                raise
+            # the mass block's counts grow with 1/h: record it and run the
+            # block at a width it solves
+            _line("ns_mass", grid="P16_64x64", exhausted=f"'{err}'")
+            runs[sp] = lid_cavity_run("ns_mass", smi, schur_precon=sp,
+                                      N_ex=16, N_ey=16)
+        by_path[f"ns_{sp}"] = n = runs[sp]["launches"]
+        _require(n["apply_coupled_system"] > 0
+                 and n["apply_system"] == 0,
+                 f"ns_{sp}: launches {n} (B2 must run, B1 must not: 'pcd' "
+                 f"applies the dense operator)")
+    diffs = {sp: same_answer(runs[sp], runs["spectral"], f"ns_{sp}")
+             for sp in ("pcd", "mass")
+             if runs[sp]["N"] == runs["spectral"]["N"]}
+    _line("ns_schur_blocks", max_u_diff_to_spectral={
+        k: f"{d:.2e}" for k, d in diffs.items()}, tol="1e-6")
+    walls.mark("14_ns_schur_blocks")
+
+    # ---- 15. Uzawa ----
+    # maxiter_velo=150: at these tolerances the floor 10·eps·‖b‖ of a nested
+    # velocity solve's tolerance sits at what float64 can attain here; a
+    # solve that reaches it in ~60 iterations without meeting it creeps on
+    # through short restart cycles up to the default cap of 4000 (measured:
+    # 871 iterations per solve on average, 590-660 s for this phase, the
+    # same answer)
+    uz = lid_cavity_run("ns_uzawa", smi, linear_solver="uzawa",
+                        maxiter_velo=150)
+    by_path["ns_uzawa"] = uz["launches"]
+    diff = same_answer(uz, runs["spectral"], "ns_uzawa")
+    _line("ns_uzawa_vs_coupled", max_u_diff=f"{diff:.2e}", tol="1e-6",
+          newton=(uz["newton"], runs["spectral"]["newton"]),
+          wall_ratio=f"{uz['wall'] / runs['spectral']['wall']:.1f}",
+          ms_per_velo_iter=f"{1e3 * uz['wall'] / max(uz['velo_iters'], 1):.3f}")
+    if not (all(c == 0 for c in uz["launches"].values())
+            and abs(uz["newton"] - runs["spectral"]["newton"]) <= 1):
+        failed.append(f"ns_uzawa: launches {uz['launches']} (must be 0), "
+                      f"Newton {uz['newton']} against "
+                      f"{runs['spectral']['newton']}")
+    walls.mark("15_ns_uzawa")
+
+    # ---- 16. assemble.py against kernel B1 ----
+    grid = Grid2D(16, 32, 32, 1.0, 1.0)
+    r = np.random.default_rng(grid.N)       # phase 2's inputs
+    u, v, w = (r.standard_normal(grid.N) for _ in range(3))
+    Pe = 7.5
+    t0 = time.perf_counter()
+    Cx, Cy = assemble.global_convection_matrices(grid)
+    A = (assemble.global_stiffness_matrix(grid)
+         + Pe * (Cx.left(u) + Cy.left(v))).tocsr()
+    t_asm = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    with warnings.catch_warnings():   # "sparse support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        A32 = torch.sparse_csr_tensor(
+            torch.as_tensor(A.indptr.astype(np.int32), device=dev),
+            torch.as_tensor(A.indices.astype(np.int32), device=dev),
+            torch.as_tensor(A.data, device=dev).float(), A.shape)
+    f32 = [torch.as_tensor(a, device=dev).float() for a in (u, v, w)]
+    got = kernels.apply_system_kernel(grid, *f32, Pe)
+    lib = A32 @ f32[2]
+    hand = csr_operator(kernels, grid, (0, grid.Ngx), False,
+                        (f32[0], f32[1], Pe))
+    torch.cuda.synchronize()
+    err = float((lib.double() - got.double()).abs().max())
+    scale = float(got.double().abs().max())
+    ok = err <= 2e-5 * scale
+    _line("assemble", grid=grid.tag, nnz=A.nnz,
+          hand_built_nnz=hand.values().numel(), assemble_s=f"{t_asm:.2f}",
+          max_abs_err_to_B1=f"{err:.3e}", scale=f"{scale:.3e}",
+          tol="2e-5*scale", ok=ok)
+    if not ok:
+        failed.append(f"the assembled operator differs from kernel B1 by "
+                      f"{err:.3e} (scale {scale:.3e})")
+    walls.mark("16_assemble")
+    _require(not failed, "; ".join(failed))
+    return by_path
+
+
+def _smi_line():
+    """The card's name and power limit, printed and returned."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    return smi
+
+
+def ns_options_main():
+    """``--ns-options``: the card's line, the build, then phases 14-16."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    from sem_tpu_torch.ops import _build
+
+    smi = _smi_line()
+    _build.library()
+    walls = Walls()
+    ns_option_phases(smi.splitlines()[0], walls)
+    walls.show()
+
+
 def ptc_ra_main(Ra):
     """``--ptc-ra``: the card's line, then one ``velo_inner=5`` PTC march."""
     import torch
@@ -879,10 +1127,7 @@ def ptc_ra_main(Ra):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    smi = _smi_line()
     ptc_march("ptc_velo_inner", smi.splitlines()[0], Ra=Ra, velo_inner=5)
 
 
@@ -1051,9 +1296,14 @@ if __name__ == "__main__":
                     help="instead of the smoke run: one PTC march of the "
                          "main path's grids at this Ra with velo_inner=5 "
                          "(Ra=1e6 takes minutes)")
+    ap.add_argument("--ns-options", action="store_true",
+                    help="instead of the smoke run: phases 14-16 alone (the "
+                         "Schur blocks, Uzawa, assemble.py)")
     a = ap.parse_args()
     if a.ptc_ra is not None:
         ptc_ra_main(a.ptc_ra)
+    elif a.ns_options:
+        ns_options_main()
     elif a.rank is None:
         main()
     else:

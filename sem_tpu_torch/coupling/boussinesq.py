@@ -187,8 +187,11 @@ def build_coupled(L_x: float, L_y: float,
     :class:`BoussinesqMDA` (``ptc_dt0``, ``precon``, ``checkpoint_path``,
     ``time_budget_s``, ...); with a ``checkpoint_path`` the configuration
     stamp that checkpoints are verified against on resume is filled in.
-    ``velo_inner`` passes through to the NS solver.  Options not ported yet
-    (``device_krylov=True``, a non-spectral ``schur_precon``) raise
+    ``velo_inner`` and ``schur_precon`` (``'spectral'``, ``'mass'`` or
+    ``'pcd'``) pass through to the NS solver; like the reference's, this
+    function has no ``linear_solver`` argument (an Uzawa NS block is built
+    by hand: the two solvers, their components, :class:`BoussinesqMDA`).
+    ``device_krylov=True`` is not ported yet and raises
     ``NotImplementedError``.
     """
     cd = ConvectionDiffusionSolver(L_x=L_x, L_y=L_y, Pe=Re * Pr,

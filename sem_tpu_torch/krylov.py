@@ -2,8 +2,8 @@
 GMRES, the host-orchestrated mixed-precision refinement around them, and the
 stochastic row-norm estimate that conditions the row-scaled flexible chunks.
 
-Counterparts of ``sem_tpu.krylov.gmres``, ``fgmres``, ``refined_gmres_host``,
-``rownorm_estimate`` and ``rowscale_prep``.  The
+Counterparts of ``sem_tpu.krylov.gmres``, ``fgmres``, ``cg``,
+``refined_gmres_host``, ``rownorm_estimate`` and ``rowscale_prep``.  The
 reference runs GMRES as one ``lax.while_loop`` on the device; here the loop is
 Python driving device tensors.  Every n-sized object (basis, iterate,
 residual) stays on the device in a basis buffer allocated once per solve; the
@@ -28,7 +28,8 @@ import torch
 
 from sem_tpu_torch.ops.sharded import all_reduce
 
-__all__ = ["gmres", "fgmres", "strip_chunk", "refined_gmres_host",
+__all__ = ["gmres", "fgmres", "cg", "strip_chunk", "refined_gmres_host",
+           "print_hist", "hist_printing_chunk",
            "KrylovInfo", "rownorm_estimate", "rowscale_prep",
            "DGKS_ETA", "DGKS_ETA_F64"]
 
@@ -156,8 +157,8 @@ def _givens(h, cs, sn, g, k):
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, *, atol: float,
           restart: int = 30, maxiter: int = 1000,
-          precon: Optional[Callable] = None, basis_dtype=None,
-          group=None):
+          precon: Optional[Callable] = None, return_hist: bool = False,
+          basis_dtype=None, group=None):
     """Restarted GMRES(m) with right preconditioning.
 
     Same algorithm as ``sem_tpu.krylov.gmres``: live-chunk block-MGS with a
@@ -172,6 +173,11 @@ def gmres(matvec: Callable, b: torch.Tensor,
     :param restart: Krylov window m
     :param maxiter: max total inner iterations (matvec applications)
     :param precon: *linear* right preconditioner ``M⁻¹(r)``
+    :param return_hist: also return the per-iteration recurrence residual
+        (a float64 host tensor of shape ``(maxiter,)``, entries past the last
+        iteration holding the initial residual): the data behind the
+        ``'LGMRES_iter'`` prints.  The values are the ones the convergence
+        test reads anyway, so the history costs no extra host read
     :param basis_dtype: storage dtype of the basis (default: ``b.dtype``);
         arithmetic stays in the working dtype
     :param group: decompose over the ranks of this group
@@ -179,7 +185,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
         ``matvec``/``precon`` take and return are this rank's strips; every
         norm and projection is reduced locally, then all-reduced, so each
         scalar that reaches the host is the same on every rank
-    :return: ``(x, KrylovInfo)``
+    :return: ``(x, KrylovInfo)`` or ``(x, KrylovInfo, hist)``
     """
     if precon is None:
         precon = lambda r: r  # noqa: E731
@@ -243,14 +249,17 @@ def gmres(matvec: Callable, b: torch.Tensor,
                    and (kk >= m or stall_in))
         done = beta <= atol or it >= maxiter or stalled
         res = cycle_res = beta
-    return x, KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
-                         stalled=stalled, resweeps=nresweep)
+    info = KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
+                      stalled=stalled, resweeps=nresweep)
+    if return_hist:
+        return x, info, torch.tensor(hist, dtype=torch.float64)
+    return x, info
 
 
 def fgmres(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None, *, atol: float,
            restart: int = 20, maxiter: int = 1000, precon: Callable,
-           basis_dtype=None):
+           return_hist: bool = False, basis_dtype=None):
     """Flexible GMRES(m): the right preconditioner may vary per application
     (it may contain inner Krylov solves), so the preconditioned vectors ``Z``
     are stored and the solution update uses them (Saad's FGMRES).
@@ -262,7 +271,8 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     ``V`` only: ``Z`` holds the solution update and stays in the working
     dtype.
 
-    :return: ``(x, KrylovInfo)``
+    :return: ``(x, KrylovInfo)``, or ``(x, KrylovInfo, hist)`` with
+        ``return_hist`` (see :func:`gmres`)
     """
     norm = torch.linalg.vector_norm
     m = int(restart)
@@ -318,8 +328,49 @@ def fgmres(matvec: Callable, b: torch.Tensor,
                    and (kk >= m or stall_in))
         done = beta <= atol or it >= maxiter or stalled
         res = cycle_res = beta
+    info = KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
+                      stalled=stalled, resweeps=nresweep)
+    if return_hist:
+        return x, info, torch.tensor(hist, dtype=torch.float64)
+    return x, info
+
+
+def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+       *, atol: float, maxiter: int = 1000,
+       precon: Optional[Callable] = None):
+    """Preconditioned conjugate gradients for SPD operators.
+
+    Offered alongside GMRES for symmetric systems (e.g. pure-diffusion
+    subproblems).  Same algorithm as ``sem_tpu.krylov.cg``: the loop runs
+    while the recurrence residual ``‖r‖₂`` exceeds ``atol`` (one host read
+    per iteration, the convergence test's own).
+
+    :return: ``(x, KrylovInfo)``
+    """
+    if precon is None:
+        precon = lambda r: r  # noqa: E731
+    dtype = b.dtype
+    atol = float(atol)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+    r = b - matvec(x)
+    z = precon(r)
+    p = z
+    rz = r @ z
+    it = 0
+    res = float(torch.linalg.vector_norm(r))
+    while res > atol and it < maxiter:
+        Ap = matvec(p)
+        alpha = rz / (p @ Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precon(r)
+        rz_new = r @ z
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        it += 1
+        res = float(torch.linalg.vector_norm(r))
     return x, KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
-                         stalled=stalled, resweeps=nresweep)
+                         stalled=False)
 
 
 def strip_chunk(strips, nf: int, mv: Callable, pc: Callable, **gmres_kw):
@@ -334,11 +385,34 @@ def strip_chunk(strips, nf: int, mv: Callable, pc: Callable, **gmres_kw):
         return strips.local(pc(strips.gather(mv(q), nf)), nf)
 
     def chunk(rp, x0, atol_lp):
-        x, info = gmres(op, strips.local(rp, nf), x0=strips.local(x0, nf),
-                        atol=atol_lp, group=strips.group, **gmres_kw)
-        return strips.gather(x, nf), info
+        x, *rest = gmres(op, strips.local(rp, nf), x0=strips.local(x0, nf),
+                         atol=atol_lp, group=strips.group, **gmres_kw)
+        return (strips.gather(x, nf), *rest)
 
     return chunk
+
+
+def print_hist(label: str, hist, n: int, offset: int = 0):
+    """The ``'LGMRES_iter'`` lines of a solve: one per iteration, its number
+    (continuing from ``offset``) and its recurrence residual."""
+    for j, h in enumerate(hist[:n].tolist()):
+        print(f"{label} LGMRES: {offset + j + 1}\t{h}")
+
+
+def hist_printing_chunk(chunk: Callable, label: str):
+    """Wrap a ``gmres_chunk`` built with ``return_hist=True``: print each
+    chunk's f32 inner-loop residuals as ``'LGMRES_iter'`` lines, numbered
+    through the chunks of one solve, and return ``(x, info)``."""
+    count = 0
+
+    def printing(rp, x0, atol_lp):
+        nonlocal count
+        x, info, hist = chunk(rp, x0, atol_lp)
+        print_hist(label, hist, info.iterations, count)
+        count += info.iterations
+        return x, info
+
+    return printing
 
 
 def refined_gmres_host(cres: Callable, pc_lp: Callable,

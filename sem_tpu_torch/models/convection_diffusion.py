@@ -27,7 +27,8 @@ import torch
 from sem_tpu_torch import operators as ops
 from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator
-from sem_tpu_torch.krylov import gmres, refined_gmres_host, strip_chunk
+from sem_tpu_torch.krylov import (gmres, hist_printing_chunk, print_hist,
+                                  refined_gmres_host, strip_chunk)
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_system_best,
                                apply_system_sharded)
@@ -52,7 +53,9 @@ class ConvectionDiffusionSolver:
         :param N_ex, N_ey: elements per direction
         :param T_W/T_E/T_S/T_N: Dirichlet value or None ⇒ homogeneous Neumann
         :param mtol: RMS tolerance of the linear solve (atol = mtol·√N)
-        :param iprint: diagnostics tags; supports 'LGMRES_suc'
+        :param iprint: diagnostics tags: 'LGMRES_suc' (one line per solve)
+            and 'LGMRES_iter' (one line per GMRES iteration: the f64
+            recurrence residuals, or on the mixed path the f32 chunks')
         :param restart: GMRES window (None ⇒ sized from a ~2 GB f32 basis,
             between 60 and 200, as in the reference)
         :param maxiter: GMRES max total iterations
@@ -189,10 +192,14 @@ class ConvectionDiffusionSolver:
             # the RHS scale
             atol = max(mtol_f * np.sqrt(self.N), max(mtol_f, 50 * eps)
                        * float(torch.linalg.vector_norm(drhs)))
-            dT, info = gmres(self._mv(self._u, self._v, self._sigma), drhs,
-                             x0=dT0, atol=atol, restart=self._restart,
-                             maxiter=self._maxiter,
-                             precon=lambda r: self._fdm(r, sigma=self._sigma))
+            want_hist = "LGMRES_iter" in self._iprint
+            dT, info, *hist = gmres(
+                self._mv(self._u, self._v, self._sigma), drhs, x0=dT0,
+                atol=atol, restart=self._restart, maxiter=self._maxiter,
+                precon=lambda r: self._fdm(r, sigma=self._sigma),
+                return_hist=want_hist)
+            if want_hist:
+                print_hist("ConvectionDiffusion", hist[0], info.iterations)
         self.last_info = info
         self.iter_count_solve += 1
         if not info.converged and not info.stalled and not best_effort:
@@ -223,6 +230,7 @@ class ConvectionDiffusionSolver:
         sigma, fdm = self._sigma, self._fdm
         mv64 = self._mv(self._u, self._v, sigma)
         restart = self._restart
+        want_hist = "LGMRES_iter" in self._iprint
         group = active_group()
         if group is None or group.world == 1:
             mv32 = self._mv(ul32, vl32, sigma)
@@ -230,13 +238,16 @@ class ConvectionDiffusionSolver:
             def chunk(rp, x0, atol_lp):
                 return gmres(lambda q: fdm(mv32(q), sigma=sigma), rp, x0=x0,
                              atol=atol_lp, restart=restart,
-                             maxiter=2 * restart + 5)
+                             maxiter=2 * restart + 5, return_hist=want_hist)
         else:
             # row strips: B3 matvec on this rank's strip, the FDM replicated
             st = RowStrips(self.grid, group)
             chunk = strip_chunk(st, 1, self._mv(ul32, vl32, sigma, st),
                                 lambda r: fdm(r, sigma=sigma),
-                                restart=restart, maxiter=2 * restart + 5)
+                                restart=restart, maxiter=2 * restart + 5,
+                                return_hist=want_hist)
+        if want_hist:
+            chunk = hist_printing_chunk(chunk, "ConvectionDiffusion")
 
         return refined_gmres_host(
             cres=lambda x: drhs - mv64(x),

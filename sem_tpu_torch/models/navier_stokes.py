@@ -7,16 +7,22 @@ Solves, for (u, v, p) on [0,L_x]×[0,L_y] given a temperature field T::
 
 with no-normal-flow + tangential-Dirichlet walls, a pinned reference pressure
 at the centre node and artificial homogeneous-Neumann pressure rows on the
-boundary.  Counterpart of the coupled-saddle path of
-``sem_tpu.models.navier_stokes``: Newton on the full residual with inexact-
-Newton forcing; each linear solve is GMRES on the stacked ``(du, dv, dp)``
-system with a block upper-triangular preconditioner — the ``'spectral'``
-Schur block (tensor solve in the eigenbasis of the consistent pressure
-Poisson pencil + exact boundary-ring elimination) and FDM velocity blocks.
-By default the Krylov loop runs as float32 chunks, whose matvec is kernel B2
-(:func:`sem_tpu_torch.ops.apply_coupled_system_best`), inside float64
-iterative refinement; a chunk that floors far above tolerance escalates like
-the reference.  Under an active group
+boundary.  Counterpart of ``sem_tpu.models.navier_stokes``: Newton on the
+full residual with inexact-Newton forcing.  With ``linear_solver='coupled'``
+each linear solve is GMRES on the stacked ``(du, dv, dp)`` system with a
+block upper-triangular preconditioner: FDM velocity blocks and one of three
+Schur blocks, ``'spectral'`` (tensor solve in the eigenbasis of the
+consistent pressure Poisson pencil + exact boundary-ring elimination),
+``'mass'`` (inverse diagonal GLL mass) or ``'pcd'`` (pressure convection-
+diffusion, ``M⁻¹ F_p A_p⁻¹`` with the Neumann FDM pseudo-inverse as
+``A_p⁻¹``).  With ``linear_solver='uzawa'`` each linear solve is float64
+GMRES on the pressure-Schur complement, whose every matvec inverts the
+2N×2N velocity Jacobian by an FDM-preconditioned GMRES of its own (it runs no
+kernel).
+By default the coupled Krylov loop runs as float32 chunks, whose matvec is
+kernel B2 (:func:`sem_tpu_torch.ops.apply_coupled_system_best`), inside
+float64 iterative refinement; a chunk that floors far above tolerance
+escalates like the reference.  Under an active group
 (:func:`sem_tpu_torch.parallel.use_group`) of more than one rank, each f32
 chunk is decomposed into row strips of (du, dv, dp), whose matvec is kernel B4
 (:func:`sem_tpu_torch.ops.apply_coupled_system_sharded`); everything else
@@ -30,9 +36,8 @@ right-preconditioned flexible f32 chunks on the mixed path.
 :meth:`NavierStokesSolver.solve_ptc` is the pseudo-transient continuation
 solve and :func:`solve_ns_continued` the p-continuation one.
 
-Not ported yet (they raise ``NotImplementedError``): the Uzawa linear
-solver and the ``'mass'``/``'pcd'`` Schur blocks (ROADMAP deferred item 1),
-and the flexible chunks under a process group (ROADMAP deferred item 6).
+Not ported yet (it raises ``NotImplementedError``): the flexible chunks
+under a process group (ROADMAP deferred item 6).
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ import torch
 from sem_tpu_torch import operators as ops
 from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator, apply_transfer
-from sem_tpu_torch.krylov import (fgmres, gmres, refined_gmres_host,
+from sem_tpu_torch.krylov import (fgmres, gmres, hist_printing_chunk,
+                                  print_hist, refined_gmres_host,
                                   rownorm_estimate, strip_chunk)
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_coupled_system_best,
@@ -175,6 +181,7 @@ class NavierStokesSolver:
                  mtol: float = 1e-7, mtol_newton: float = 1e-5,
                  iprint: list = ("NEWTON_suc", "NEWTON_iter"),
                  restart: int = None, maxiter: int = 5000,
+                 restart_velo: int = 60, maxiter_velo: int = 4000,
                  max_newton: int = 100, linear_solver: str = "coupled",
                  mixed_precision: bool = True, max_refine: int = 12,
                  schur_precon: str = "spectral", forcing: float = 1e-3,
@@ -183,18 +190,29 @@ class NavierStokesSolver:
         """
         :param Re: Reynolds number; :param Gr: Grashof number
         :param v_W/v_E/u_S/u_N: tangential Dirichlet wall values
-        :param mtol: RMS tolerance of the coupled linear solves
+        :param mtol: RMS tolerance of the coupled / pressure-Schur GMRES
         :param mtol_newton: RMS tolerance of the Newton iteration
-        :param iprint: tags among {'NEWTON_iter','NEWTON_suc','LGMRES_suc'}
+        :param iprint: tags among {'NEWTON_iter','NEWTON_suc','LGMRES_suc',
+            'LGMRES_iter','VELO_suc'}
         :param restart/maxiter: GMRES window (None ⇒ sized from a ~2 GB f32
             basis, between 60 and 200) / total-iteration cap
+        :param restart_velo/maxiter_velo: velocity-block GMRES parameters of
+            the Uzawa path
         :param max_newton: safety cap on Newton iterations
-        :param linear_solver: ``'coupled'`` (the only one ported)
+        :param linear_solver: ``'coupled'``: one GMRES on the full
+            (du, dv, dp) saddle system with the block upper-triangular
+            preconditioner; ``'uzawa'``: pressure-Schur GMRES with (nearly)
+            exact inner velocity solves, all float64 whatever
+            ``mixed_precision`` says
         :param mixed_precision: float32 chunks inside float64 refinement
             (default) or one float64 GMRES
         :param max_refine: soft floor on the refinement passes (the budget
             follows ``maxiter``; see :func:`refined_gmres_host`)
-        :param schur_precon: ``'spectral'`` (the only one ported)
+        :param schur_precon: Schur-block approximation: ``'spectral'``
+            (iteration counts flat in resolution), ``'mass'`` (inverse
+            diagonal GLL mass; counts grow about linearly with 1/h) or
+            ``'pcd'`` (pressure convection-diffusion; under ``'uzawa'`` it
+            falls to the mass block)
         :param forcing: inexact-Newton forcing factor η: each linear system is
             solved to RMS tolerance max(mtol, η·‖F‖/√(3N)); None = fixed mtol
         :param velo_inner: inner velocity-solve strength of the coupled
@@ -208,15 +226,13 @@ class NavierStokesSolver:
         :param dtype: dtype of the fields and the outer solve
         :param device: torch device of every tensor of the solver
         """
-        if linear_solver != "coupled":
-            raise NotImplementedError(
-                "linear_solver='uzawa' is not ported to sem_tpu_torch yet "
-                "(ROADMAP deferred item 1)")
-        if schur_precon != "spectral":
-            raise NotImplementedError(
-                f"schur_precon={schur_precon!r} is not ported to "
-                f"sem_tpu_torch yet (only 'spectral'; ROADMAP deferred "
-                f"item 1)")
+        if linear_solver not in ("uzawa", "coupled"):
+            raise ValueError("linear_solver must be 'uzawa' or 'coupled'")
+        self._linear_solver = linear_solver
+        if schur_precon not in ("mass", "pcd", "spectral"):
+            raise ValueError(
+                "schur_precon must be 'mass', 'pcd' or 'spectral'")
+        self._schur_precon = schur_precon
         self._iprint = list(iprint)
         self._Re = float(Re)
         self._Gr = float(Gr)
@@ -230,6 +246,8 @@ class NavierStokesSolver:
             restart = min(200, max(60, int(2e9 / (4 * N3))))
         self._restart = int(restart)
         self._maxiter = int(maxiter)
+        self._restart_velo = int(restart_velo)
+        self._maxiter_velo = int(maxiter_velo)
         self._velo_inner = max(0, int(velo_inner))
         self._max_newton = int(max_newton)
         self._forcing = None if forcing is None else float(forcing)
@@ -270,9 +288,18 @@ class NavierStokesSolver:
         # exact masked-Laplacian inverse for the velocity blocks
         self._fdm = FDM2D(self.grid, dirichlet_x=(True, True),
                           dirichlet_y=(True, True))
-        self._spec = _spectral_schur_data(self.grid)
-        self._spec_nz = np.abs(self._spec["esum"]) > 1e-14 * float(
-            np.max(np.abs(self._spec["esum"])))
+        # pure-Neumann pressure Laplacian pseudo-inverse (PCD Schur block)
+        self._fdm_p = (FDM2D(self.grid, dirichlet_x=(False, False),
+                             dirichlet_y=(False, False))
+                       if schur_precon == "pcd" else None)
+        # spectrally-matched Schur block (see _spectral_schur_data)
+        self._spec = self._spec_nz = None
+        if schur_precon == "spectral":
+            self._spec = _spectral_schur_data(self.grid)
+            self._spec_nz = np.abs(self._spec["esum"]) > 1e-14 * float(
+                np.max(np.abs(self._spec["esum"])))
+        # shared zero field of the Uzawa closures: read, never written
+        self._zero = torch.zeros(self.N, dtype=dtype, device=dev)
 
         # linearization state (u, v of the last _calc_jacobians; convection
         # Jacobian diagonals; their f32 casts)
@@ -290,6 +317,7 @@ class NavierStokesSolver:
         #                               the flexible velo_inner=5 path
         self.besteffort_floor_count = 0  # floored best-effort (precon) calls
         self.last_schur_info = None
+        self.last_velo_info = None
 
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(self._dtype)
@@ -389,8 +417,32 @@ class NavierStokesSolver:
         ul, vl = u_lin.to(dtype), v_lin.to(dtype)
         jac = tuple(j.to(dtype) for j in jac)
         pin = 2 * N + self._pin
-        spectral = self._spectral(dtype)
         fdm = self._fdm
+        if self._schur_precon == "spectral":
+            # handles its own boundary and pin rows
+            schur = self._spectral(dtype)
+        else:
+            md = self._g("mass_diag", dtype)
+            sd = self._g("stiff_diag", dtype)
+            mb_or_pin, pin_p, fdm_p = self._mb_or_pin, self._pin, self._fdm_p
+
+            def schur(rp, sigma):
+                if fdm_p is not None:
+                    # pressure convection-diffusion: Ŝ⁻¹ ≈ M⁻¹ F_p A_p⁻¹
+                    # (Elman-Silvester-Wathen), A_p⁻¹ the FDM pseudo-inverse
+                    # of the Neumann pressure Laplacian, F_p = K + Re(u∂x +
+                    # v∂y) on pressure (the dense two-matmul apply, as in the
+                    # reference).  The masked rows (∂ₙp = 0 rows, pin) carry a
+                    # different scale and stay out of the Poisson solve.
+                    t = fdm_p(torch.where(mb_or_pin, 0.0, rp))
+                    dp = ops.apply_system(grid, ul, vl, t, Re) / md
+                else:
+                    dp = rp / md          # diagonal GLL mass
+                # the ∂ₙp = 0 rows carry stiffness scale; the pin row is the
+                # identity
+                dp = torch.where(mb, rp / sd, dp)
+                dp[pin_p] = rp[pin_p]
+                return dp
 
         if strips is None:
             def mv(q):
@@ -415,7 +467,7 @@ class NavierStokesSolver:
 
         def pc(r, sigma):
             ru, rv, rp = r[:N], r[N:2 * N], r[2 * N:]
-            dp = spectral(rp, sigma)
+            dp = schur(rp, sigma)
             gx = torch.where(mb, 0.0, ops.apply_grad_x(grid, dp))
             gy = torch.where(mb, 0.0, ops.apply_grad_y(grid, dp))
             bu, bv = ru - gx, rv - gy
@@ -441,10 +493,11 @@ class NavierStokesSolver:
 
         return mv, pc
 
-    def _update_coupled_f64(self, b, dp0, mtol):
+    def _update_coupled_f64(self, b, dp0, mtol, hist_out: list = None):
         """Single-level float64 saddle solve (``mixed_precision=False``, and
         escalation step 2 of a floored mixed solve); flexible GMRES when
-        ``velo_inner > 0``."""
+        ``velo_inner > 0``.  With a list ``hist_out`` the per-iteration
+        recurrence residuals are appended to it."""
         N = self.N
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(mtol * np.sqrt(3 * N), max(mtol, 50 * eps)
@@ -454,9 +507,91 @@ class NavierStokesSolver:
         z = torch.zeros(2 * N, dtype=self._dtype, device=self.device)
         sigma = self._sigma
         solver = fgmres if self._velo_inner > 0 else gmres
-        return solver(mv, b, x0=torch.cat([z, dp0]), atol=atol,
-                      restart=self._restart, maxiter=self._maxiter,
-                      precon=lambda r: pc(r, sigma))
+        x, info, *hist = solver(mv, b, x0=torch.cat([z, dp0]), atol=atol,
+                                restart=self._restart, maxiter=self._maxiter,
+                                precon=lambda r: pc(r, sigma),
+                                return_hist=hist_out is not None)
+        if hist_out is not None:
+            hist_out.extend(hist)
+        return x, info
+
+    # ------------------------- Uzawa linear solve ------------------------- #
+    def _velo_rows(self, du, dv):
+        """The velocity rows of the tangent residual at ``dp = 0, dT = 0``:
+        the masked 2N×2N velocity Jacobian applied to ``(du, dv)``
+        (:meth:`_dres` without its terms in ``dp`` and ``dT``, which add
+        exact zeros there, and without the continuity row)."""
+        mb = self._mb
+        jxx, jxy, jyx, jyy = self._jac
+        u_lin, v_lin = self._u_lin, self._v_lin
+        dru = self._sys_apply(u_lin, v_lin, du) + jxx * du + jxy * dv
+        drv = self._sys_apply(u_lin, v_lin, dv) + jyx * du + jyy * dv
+        return torch.where(mb, du, dru), torch.where(mb, dv, drv)
+
+    def _solve_velo(self, bu, bv, q0):
+        """Invert the masked 2N×2N velocity Jacobian of the current
+        linearization: GMRES right-preconditioned by the FDM(σ) inverse of
+        the masked Laplacian on the stacked pair, solved (nearly) exactly, to
+        a tight tolerance with a machine-precision floor."""
+        N, fdm, sigma = self.N, self._fdm, self._sigma
+        b = torch.cat([bu, bv])
+
+        def mv(q):
+            return torch.cat(self._velo_rows(q[:N], q[N:]))
+
+        def pc(q):
+            return fdm(q.reshape(2, N), sigma=sigma).reshape(-1)
+
+        eps = float(torch.finfo(self._dtype).eps)
+        atol = max(1e-2 * self._mtol * np.sqrt(2 * N),
+                   10 * eps * float(torch.linalg.vector_norm(b)))
+        return gmres(mv, b, x0=q0, atol=atol, restart=self._restart_velo,
+                     maxiter=self._maxiter_velo, precon=pc)
+
+    def _precon_schur(self, c):
+        """Schur preconditioner of the Uzawa path: the ``'spectral'`` block,
+        else the inverse diagonal mass with the pin row passed through."""
+        if self._schur_precon == "spectral":
+            return self._spectral(self._dtype)(c, self._sigma)
+        dp = c / self._g("mass_diag", self._dtype)
+        dp[self._pin] = c[self._pin]
+        return dp
+
+    def _update_uzawa(self, res_u, res_v, res_cont, dp0, mtol):
+        """Full Uzawa update: velocity pre-solve, GMRES on the pressure-Schur
+        operator (every matvec a velocity solve from zero), velocity
+        back-substitution warm-started at the pre-solve.  Float64 throughout.
+
+        :return: ``(du, dv, dp, schur_info, velo_info)``, the last that of
+            the back-substitution
+        """
+        N, z = self.N, self._zero
+        q0 = torch.zeros(2 * N, dtype=self._dtype, device=self.device)
+        q_star, _ = self._solve_velo(res_u, res_v, q0)
+        b_schur = res_cont - self._dres(q_star[:N], q_star[N:], z, z)[2]
+
+        def schur_mv(dp):
+            bu, bv, _ = self._dres(z, z, dp, z)
+            f, _ = self._solve_velo(bu, bv, q0)
+            return self._dres(-f[:N], -f[N:], dp, z)[2]
+
+        # convergence floor: the absolute RMS tolerance or mtol relative to
+        # the RHS scale, whichever is larger (the nested velocity solves'
+        # f64 noise makes absolute targets below roundoff·‖b‖ unreachable)
+        eps = float(torch.finfo(self._dtype).eps)
+        atol = max(mtol * np.sqrt(N), max(mtol, 50 * eps)
+                   * float(torch.linalg.vector_norm(b_schur)))
+        want_hist = "LGMRES_iter" in self._iprint
+        dp, schur_info, *hist = gmres(
+            schur_mv, b_schur, x0=dp0, atol=atol, restart=self._restart,
+            maxiter=self._maxiter, precon=self._precon_schur,
+            return_hist=want_hist)
+        if want_hist:
+            print_hist("NavierStokes", hist[0], schur_info.iterations)
+
+        bu, bv, _ = self._dres(z, z, dp, z)
+        q, velo_info = self._solve_velo(res_u - bu, res_v - bv, q_star)
+        return q[:N], q[N:], dp, schur_info, velo_info
 
     def _update_coupled_mixed(self, b, dp0, mtol, velo_inner=None,
                               x0_full=None):
@@ -488,6 +623,7 @@ class NavierStokesSolver:
         mv64, _ = self._coupled_ops(self._u_lin, self._v_lin, self._jac,
                                     self._dtype)
         restart, basis_dtype = self._restart, self._basis_dtype
+        want_hist = "LGMRES_iter" in self._iprint
         group = active_group()
         decomposed = group is not None and group.world > 1
         if k_inner > 0:
@@ -514,7 +650,8 @@ class NavierStokesSolver:
                               atol=atol_lp, restart=restart,
                               maxiter=2 * restart + 5,
                               basis_dtype=basis_dtype,
-                              precon=lambda r: pc32(r / dinv32, sigma))
+                              precon=lambda r: pc32(r / dinv32, sigma),
+                              return_hist=want_hist)
         elif not decomposed:
             mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, f32)
 
@@ -525,7 +662,7 @@ class NavierStokesSolver:
                 return gmres(lambda q: pc32(mv32(q), sigma), rp, x0=x0,
                              atol=atol_lp, restart=restart,
                              maxiter=2 * restart + 5,
-                             basis_dtype=basis_dtype)
+                             basis_dtype=basis_dtype, return_hist=want_hist)
         else:
             # row strips of (du, dv, dp): B4 matvec on this rank's strips,
             # the preconditioner replicated
@@ -537,7 +674,10 @@ class NavierStokesSolver:
 
             chunk = strip_chunk(st, 3, mv32, pc_lp, restart=restart,
                                 maxiter=2 * restart + 5,
-                                basis_dtype=basis_dtype)
+                                basis_dtype=basis_dtype,
+                                return_hist=want_hist)
+        if want_hist:   # the f32 inner-loop residuals
+            chunk = hist_printing_chunk(chunk, "NavierStokes")
 
         if x0_full is None:
             x0_full = torch.cat([torch.zeros(2 * N, dtype=self._dtype,
@@ -605,7 +745,13 @@ class NavierStokesSolver:
                if dp0 is None else self._t(dp0))
         mtol_f = float(self._mtol if mtol is None else mtol)
         b = torch.cat([self._t(dres_u), self._t(dres_v), self._t(dres_cont)])
-        if self._mixed_precision:
+        velo_info = None
+        if self._linear_solver == "uzawa":
+            # float64 whatever mixed_precision says: no chunks, no ladder
+            du, dv, dp, info, velo_info = self._update_uzawa(
+                b[:N], b[N:2 * N], b[2 * N:], dp0, mtol_f)
+            x = torch.cat([du, dv, dp])
+        elif self._mixed_precision:
             x, info = self._update_coupled_mixed(b, dp0, mtol_f)
             if not info.converged:
                 # a plateau near the tolerance is the f32 floor — accepted;
@@ -656,8 +802,12 @@ class NavierStokesSolver:
                                   "precision path floored far above "
                                   "tolerance; retried in f64")
         else:
-            x, info = self._update_coupled_f64(b, dp0, mtol_f)
+            hist = [] if "LGMRES_iter" in self._iprint else None
+            x, info = self._update_coupled_f64(b, dp0, mtol_f, hist)
+            if hist:
+                print_hist("NavierStokes", hist[0], info.iterations)
         self.last_schur_info = info
+        self.last_velo_info = info if velo_info is None else velo_info
         self.iter_count_solve += 1
         if not info.converged and not info.stalled and not best_effort:
             raise RuntimeError(
@@ -669,6 +819,11 @@ class NavierStokesSolver:
             print(f"NavierStokes Schur GMRES: {status} in {info.iterations} "
                   f"iterations ({info.resweeps} DGKS resweeps) with resnorm "
                   f"{info.resnorm:.3e}")
+        if "VELO_suc" in self._iprint or "LU_suc" in self._iprint:
+            vi = self.last_velo_info
+            print(f"NavierStokes velocity solve: {vi.iterations} "
+                  f"iterations, resnorm {vi.resnorm:.3e}, "
+                  f"converged={vi.converged}")
         return x[:N], x[N:2 * N], x[2 * N:]
 
     @torch.no_grad()

@@ -176,3 +176,70 @@ def test_forecast_exit_matches_reference():
     got = [_forecast_doomed(h, a, r) for h, a, r in cases]
     assert got == [jax_doomed(h, a, r) for h, a, r in cases]
     assert got == [True, False, False, True]
+
+
+@pytest.mark.parametrize("restart", [30, 8])
+def test_gmres_return_hist_matches_reference(restart):
+    """``gmres(..., return_hist=True)`` on the f64 CD system (restart=8
+    restarts twice): the third value has the reference's shape
+    ``(maxiter,)``, its first ``iterations`` entries the reference's
+    recurrence residuals within 1e-12 of the first one, the padding equal;
+    without the flag the return stays ``(x, info)``."""
+    jmv, tmv, jfdm, tfdm, b = _cd_system()
+    atol = 1e-10 * np.linalg.norm(b)
+    kw = dict(atol=atol, restart=restart, maxiter=60)
+    _, jinfo, jhist = jkry.gmres(jmv(jnp.float64), jnp.asarray(b),
+                                 precon=jfdm, return_hist=True, **kw)
+    x, info, hist = tkry.gmres(tmv(torch.float64), t64(b), precon=tfdm,
+                               return_hist=True, **kw)
+    assert info.iterations == int(jinfo.iterations) > restart
+    assert hist.shape == (60,) == np.asarray(jhist).shape
+    assert hist.dtype == torch.float64 and hist.device.type == "cpu"
+    assert rel_err(hist.numpy(), np.asarray(jhist)) <= 1e-12
+    x2, info2 = tkry.gmres(tmv(torch.float64), t64(b), precon=tfdm, **kw)
+    assert info2 == info and torch.equal(x2, x)
+
+
+def test_fgmres_return_hist_matches_reference():
+    """``fgmres(..., return_hist=True)`` against the history the reference's
+    ``fgmres`` always returns, within 1e-12 of the first residual."""
+    jmv, tmv, jfdm, tfdm, b = _cd_system()
+    atol = 1e-10 * np.linalg.norm(b)
+    kw = dict(atol=atol, restart=12, maxiter=50)
+    _, jinfo, jhist = jkry.fgmres(jmv(jnp.float64), jnp.asarray(b),
+                                  precon=jfdm, **kw)
+    out = tkry.fgmres(tmv(torch.float64), t64(b), precon=tfdm, **kw)
+    assert len(out) == 2
+    _, info, hist = tkry.fgmres(tmv(torch.float64), t64(b), precon=tfdm,
+                                return_hist=True, **kw)
+    assert info.iterations == int(jinfo.iterations)
+    assert rel_err(hist.numpy(), np.asarray(jhist)) <= 1e-12
+
+
+@pytest.mark.parametrize("precon", [False, True], ids=["plain", "jacobi"])
+def test_cg_matches_reference(precon):
+    """``cg`` as tests/test_krylov_fdm.py:143 uses it (an SPD system with
+    condition number 50, atol 1e-10), plain and Jacobi-preconditioned: the
+    reference's iteration count, ``KrylovInfo`` fields of the same meaning,
+    the solution within 1e-7."""
+    rng = np.random.default_rng(5)
+    n = 90
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    A = (Q * np.linspace(1.0, 50.0, n)) @ Q.T
+    x_true = rng.standard_normal(n)
+    b = A @ x_true
+    d = np.diag(A).copy()
+    Aj, At = jnp.asarray(A), t64(A)
+    jpc = (lambda r: r / jnp.asarray(d)) if precon else None
+    tpc = (lambda r: r / t64(d)) if precon else None
+    _, jinfo = jkry.cg(lambda v: Aj @ v, jnp.asarray(b), atol=1e-10,
+                       maxiter=2000, precon=jpc)
+    x, info = tkry.cg(lambda v: At @ v, t64(b), atol=1e-10, maxiter=2000,
+                      precon=tpc)
+    assert info.converged and bool(jinfo.converged)
+    assert info.iterations == int(jinfo.iterations)
+    assert not info.stalled and info.resnorm <= 1e-10
+    np.testing.assert_allclose(x.numpy(), x_true, rtol=1e-7, atol=1e-8)
+    # the iteration cap: not converged, the count at the cap
+    _, capped = tkry.cg(lambda v: At @ v, t64(b), atol=1e-10, maxiter=5)
+    assert not capped.converged and capped.iterations == 5

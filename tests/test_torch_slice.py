@@ -146,16 +146,20 @@ def test_ns_lid_cavity_matches_reference(mixed, atol):
 
 def test_unported_options_raise():
     """What is still unported raises ``NotImplementedError`` and names its
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP deferred item 1"):
-        build_coupled(1.0, 1.0, mode="JNK", schur_precon="pcd",
-                      device="cpu", **QUICK)
+    ROADMAP item; the Uzawa solver and the ``'mass'``/``'pcd'`` Schur blocks
+    (once ROADMAP item 1) construct."""
+    _, ns, _ = build_coupled(1.0, 1.0, mode="JNK", schur_precon="pcd",
+                             device="cpu", **QUICK)
+    assert ns._schur_precon == "pcd" and ns._fdm_p is not None
+    _, ns, _ = build_coupled(1.0, 1.0, mode="JNK", schur_precon="mass",
+                             device="cpu", **QUICK)
+    assert ns._schur_precon == "mass" and ns._spec is None
     with pytest.raises(NotImplementedError, match="ROADMAP deferred item 5"):
         build_coupled(1.0, 1.0, mode="JNK", device_krylov=True,
                       device="cpu", **QUICK)
-    with pytest.raises(NotImplementedError, match="ROADMAP deferred item 1"):
-        TNS(1.0, 1.0, Re=1.0, Gr=0.0, P=2, N_ex=2, N_ey=2,
-            linear_solver="uzawa", device="cpu")
+    ns = TNS(1.0, 1.0, Re=1.0, Gr=0.0, P=2, N_ex=2, N_ey=2,
+             linear_solver="uzawa", device="cpu")
+    assert ns._linear_solver == "uzawa"
     with pytest.raises(ValueError):
         build_coupled(1.0, 1.0, mode="XX", device="cpu", **QUICK)
 
@@ -179,7 +183,8 @@ def test_port_never_imports_jax():
             assert top not in ("jax", "jaxlib", "sem_tpu"), (f, mod)
     code = ("import sys, sem_tpu_torch, sem_tpu_torch.coupling, "
             "sem_tpu_torch.convert, sem_tpu_torch.ops, sem_tpu_torch.ptc, "
-            "sem_tpu_torch.utils.checkpoint, sem_tpu_torch.parallel; "
+            "sem_tpu_torch.utils.checkpoint, sem_tpu_torch.parallel, "
+            "sem_tpu_torch.assemble; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules), 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -91,7 +91,9 @@ the last line):
     vertical centerline the Ghia, Ghia & Shin (1982) Re=100 table within
     2e-2, and the runs' u at those points agree within 1e-6.  Should
     ``'mass'`` exhaust its iteration cap at this width, its line says so and
-    it runs at P=16 16×16 instead;
+    it runs at P=16 16×16 instead.  In the whole script ``'pcd'`` runs at
+    P=16 16×16 beside a ``'spectral'`` run there, so that phases 17-19 fit
+    the script's time; ``--ns-options`` runs it at 64×64;
 15. the Uzawa linear solver at full width: the same problem with
     ``linear_solver="uzawa"``, ``schur_precon="spectral"``,
     ``maxiter_velo=150`` (float64, nested Krylov): Newton iterations, Schur GMRES iterations per Newton step, the
@@ -105,14 +107,46 @@ the last line):
     within phase 2's tolerance of the kernel's output; its nonzero count
     beside that of phase 4's hand-built library operator.
 
-``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone.
+17. profile of the main path: one warm north-star solve (phase 6's
+    configuration, a fresh ``build_coupled``) inside
+    ``sem_tpu_torch.utils.profiling.trace`` (``torch.profiler``, CPU and CUDA
+    activities): the five device operations with the most device time and
+    their shares of it, B1's and B2's shares, the device-busy share of the
+    wall; the trace goes to ``build/sem_tpu_torch/trace`` (not brought back:
+    tens of MB);
+18. the implicit adjoint at full width: phase 6's state tightened to
+    ``mtol_nonlin=1e-10`` (warm start), then
+    ``sem_tpu_torch.coupling.implicit.gradients`` of the reference's loss
+    ``sum(u² + v²)`` with respect to Re, Ra, Pr at the defaults
+    (``inner_rtol=1e-4``, ``max_basis_gb=0.5``): the outer and inner
+    windows, outer iterations, wall, s/it, host ms per transposed matvec
+    (``J_xᵀ w`` by autograd, synchronized, median of 20), a ``PhaseTimer``
+    split (vjp set-up / row norms / FGMRES / θ-vjp), peak device memory,
+    the raw residual ``‖J_xᵀλ − g‖/‖g‖`` from an independent vector-Jacobian
+    product beside its bound 1e-6 (printed, not required: see the note in
+    :func:`adjoint_phase`), the three gradients, and d/dRa against central
+    differences of two warm-started JNK re-solves at ``Ra(1 ± 1e-4)``
+    (:func:`fd_derivative`; within 1e-3; on a
+    miss the steps 1e-3 and 1e-5 are tried and printed, and the phase passes
+    only if one of them agrees); B1-B4 launches 0;
+19. the study path through its CLIs, as subprocesses: ``boussinesq_run -P 8
+    -Ne 32 -Ra 1e5 -mode PTC -ckpt True`` (through ``runpy``, so that its
+    kernel launches are read after the march), ``adjoint_hi -ckpt <that>
+    -fd 1`` and ``summarize``: exit codes 0, the ``.npz``, ``.stats.json``
+    and ``.ckpt.npz`` written, the march's centerline anchors the de Vahl
+    Davis values within 1 %, the adjoint's FD line printed.
+
+``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
+``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
+solve for the warm-up and the state).
 
 Then the wall of every phase and the total; a JSON line with one entry per
 kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 (``call_us``, ``plain_us``), ``device_ms``, ``plain_device_ms`` and
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
-phases 10–12 and 14–15; as the last line ``{"ok": true, "device": {...}}``.
+phases 10–12, 14–15, 18 and 19's march; as the last line
+``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 import argparse
@@ -594,6 +628,7 @@ def main():
             f"(atol {mda.atol_nonlin:.3e}) u_anchor {u_anchor:.4f} "
             f"launches {launches}")
 
+    s6 = s
     walls.mark("6_north_star")
 
     # ---- 7. kernels B3/B4 on row strips, halos cut from the full field ----
@@ -660,7 +695,10 @@ def main():
                                   walls=walls)
 
     # ---- 14.-16. Schur blocks, Uzawa, assemble.py ----
-    by_path.update(ns_option_phases(smi, walls))
+    by_path.update(ns_option_phases(smi, walls, cut=True))
+
+    # ---- 17.-19. profile, implicit adjoint, study CLIs ----
+    by_path.update(adjoint_phases(smi, walls, s6))
     walls.show()
 
     rows = []
@@ -986,9 +1024,12 @@ def lid_cavity_run(tag, smi, **kw):
                 velo_iters=pre + nested + back)
 
 
-def ns_option_phases(smi, walls=None):
+def ns_option_phases(smi, walls=None, cut=False):
     """Phases 14-16 (module docstring).  Returns the kernel launch counts of
-    phases 14-15 by path; any failed requirement raises."""
+    phases 14-15 by path; any failed requirement raises.  With ``cut`` (the
+    whole script, so that phases 17-19 fit its time) ``'pcd'`` runs at NS
+    P16 16×16 beside a ``'spectral'`` run there (91.6 s at 64×64);
+    ``--ns-options`` runs it at 64×64."""
     import numpy as np
     import torch
 
@@ -1011,9 +1052,13 @@ def ns_option_phases(smi, walls=None):
 
     # ---- 14. the three Schur blocks, coupled path ----
     runs = {}
+    small = dict(N_ex=16, N_ey=16) if cut else {}
+    if cut:
+        runs["spectral_16x16"] = lid_cavity_run("ns_spectral", smi, **small)
     for sp in ("spectral", "pcd", "mass"):
         try:
-            runs[sp] = lid_cavity_run(f"ns_{sp}", smi, schur_precon=sp)
+            runs[sp] = lid_cavity_run(f"ns_{sp}", smi, schur_precon=sp,
+                                      **(small if sp == "pcd" else {}))
         except RuntimeError as err:
             if sp != "mass":
                 raise
@@ -1027,9 +1072,10 @@ def ns_option_phases(smi, walls=None):
                  and n["apply_system"] == 0,
                  f"ns_{sp}: launches {n} (B2 must run, B1 must not: 'pcd' "
                  f"applies the dense operator)")
-    diffs = {sp: same_answer(runs[sp], runs["spectral"], f"ns_{sp}")
-             for sp in ("pcd", "mass")
-             if runs[sp]["N"] == runs["spectral"]["N"]}
+    same_grid = {r["N"]: r for r in (runs.get("spectral_16x16"),
+                                     runs["spectral"]) if r}
+    diffs = {sp: same_answer(runs[sp], same_grid[runs[sp]["N"]], f"ns_{sp}")
+             for sp in ("pcd", "mass") if runs[sp]["N"] in same_grid}
     _line("ns_schur_blocks", max_u_diff_to_spectral={
         k: f"{d:.2e}" for k, d in diffs.items()}, tol="1e-6")
     walls.mark("14_ns_schur_blocks")
@@ -1044,16 +1090,16 @@ def ns_option_phases(smi, walls=None):
     uz = lid_cavity_run("ns_uzawa", smi, linear_solver="uzawa",
                         maxiter_velo=150)
     by_path["ns_uzawa"] = uz["launches"]
-    diff = same_answer(uz, runs["spectral"], "ns_uzawa")
+    ref = same_grid[uz["N"]]
+    diff = same_answer(uz, ref, "ns_uzawa")
     _line("ns_uzawa_vs_coupled", max_u_diff=f"{diff:.2e}", tol="1e-6",
-          newton=(uz["newton"], runs["spectral"]["newton"]),
-          wall_ratio=f"{uz['wall'] / runs['spectral']['wall']:.1f}",
+          newton=(uz["newton"], ref["newton"]),
+          wall_ratio=f"{uz['wall'] / ref['wall']:.1f}",
           ms_per_velo_iter=f"{1e3 * uz['wall'] / max(uz['velo_iters'], 1):.3f}")
     if not (all(c == 0 for c in uz["launches"].values())
-            and abs(uz["newton"] - runs["spectral"]["newton"]) <= 1):
+            and abs(uz["newton"] - ref["newton"]) <= 1):
         failed.append(f"ns_uzawa: launches {uz['launches']} (must be 0), "
-                      f"Newton {uz['newton']} against "
-                      f"{runs['spectral']['newton']}")
+                      f"Newton {uz['newton']} against {ref['newton']}")
     walls.mark("15_ns_uzawa")
 
     # ---- 16. assemble.py against kernel B1 ----
@@ -1092,6 +1138,328 @@ def ns_option_phases(smi, walls=None):
     walls.mark("16_assemble")
     _require(not failed, "; ".join(failed))
     return by_path
+
+
+# phase 19: the study CLIs as subprocesses; the march runs through runpy,
+# exactly as ``python -m`` runs it, so that its launch counts can be read
+STUDY_MARCH = ["-P", "8", "-Ne", "32", "-Ra", "1e5", "-mode", "PTC",
+               "-ckpt", "True"]
+STUDY_TIMEOUT_S = 900
+_RUN_COUNTED = (
+    "import json, runpy, sys\n"
+    "sys.argv = [sys.argv[1]] + sys.argv[2:]\n"
+    "from sem_tpu_torch.ops import kernels\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "print('LAUNCHES ' + json.dumps(kernels.LAUNCHES), flush=True)\n")
+
+
+def profile_phase(smi, logdir, top=5):
+    """Phase 17 (module docstring)."""
+    import torch
+    from torch.autograd import DeviceType
+    from sem_tpu_torch.coupling import build_coupled
+    from sem_tpu_torch.utils.profiling import trace
+
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mda.solve()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(logdir) as prof:
+        mda.solve()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in dev)      # µs
+    dev.sort(key=lambda e: -e.device_time_total)
+
+    def share(pred):
+        return sum(e.device_time_total for e in dev if pred(e.key)) / max(
+            busy, 1e-9)
+
+    tops = [(e.key[:60], round(e.device_time_total / max(busy, 1e-9), 4),
+             e.count) for e in dev[:top]]
+    b1 = share(lambda k: "apply_system_kernel" in k)
+    b2 = share(lambda k: "coupled_system_kernel" in k)
+    _line("profile", solve_s=f"{wall:.2f}", unprofiled_solve_s=f"{plain:.2f}",
+          stats=mda.stats.as_list(), device_busy_ms=f"{busy / 1e3:.1f}",
+          device_busy_share_of_unprofiled_wall=f"{busy / 1e6 / plain:.3f}",
+          device_kernels=len(dev), b1_share=f"{b1:.4f}",
+          b2_share=f"{b2:.4f}", smi=f"'{smi}'")
+    for rank, (key, sh, n) in enumerate(tops, 1):
+        _line("profile_top", rank=rank, share=sh, calls=n, op=f"'{key}'")
+    _require(busy > 0 and b1 > 0 and b2 > 0,
+             f"the profile holds no device time of B1/B2 (busy {busy} µs, "
+             f"{len(dev)} device operations)")
+
+
+def fd_derivative(F, x, params, loss_fn, build, name="Ra", rel=1e-4):
+    """Central finite difference of ``loss_fn`` in ``params[name]`` by two
+    JNK re-solves warm-started at the flat state ``x``.
+
+    The step ``h = rel·θ`` puts on ``x`` a residual ``F(x, θ+h) − F(x, θ)``
+    of RMS ``r`` (2.6e-11 at p16 64×64, Ra=1e3, rel 1e-4: below any fixed
+    study tolerance, where a re-solve would take no Newton step and the
+    difference would read 0).  Each re-solve therefore runs to RMS ``r/30``
+    with its coupled GMRES to 1e-6 relative (``mtol_gmres=1e-6·r``,
+    ``forcing=1e-6``) and at most 5 Newton steps; one that floors above
+    that raises ``RuntimeError``.  (At the p16 Ra=1e5 PTC state such a
+    re-solve stopped with "Boussinesq JNK GMRES: no convergence in 1
+    iterations", at 1e-4 relative too: not analysed; this phase is at
+    Ra=1e3.)
+
+    :param build: ``build(**overrides) -> BoussinesqMDA`` at the state's
+        configuration
+    :return: ``(fd, r, [Newton steps per re-solve])``
+    """
+    import torch
+    from sem_tpu_torch.coupling import CoupledState
+
+    h = params[name] * rel
+    pt = {k: torch.tensor(v, dtype=torch.float64, device=x.device)
+          for k, v in params.items()}
+    dF = F(x, dict(pt, **{name: pt[name] + h})) - F(x, pt)
+    r = float(torch.linalg.vector_norm(dF)) / x.shape[0] ** 0.5
+    vals, newton = [], []
+    for sgn in (+1, -1):
+        mda = build(**{name: params[name] + sgn * h}, mode="JNK",
+                    mtol_nonlin=r / 30, mtol_gmres=1e-6 * r, forcing=1e-6,
+                    maxiter=5)
+        N_cd, N_ns = mda.N_cd, mda.N_ns
+        sp = mda.solve(CoupledState(x[:N_cd], x[N_cd:N_cd + N_ns],
+                                    x[N_cd + N_ns:N_cd + 2 * N_ns],
+                                    x[N_cd + 2 * N_ns:]))
+        vals.append(float(loss_fn(torch.cat([sp.T, sp.u, sp.v, sp.p]))))
+        newton.append(mda.stats.nonlinear_iters)
+    return (vals[0] - vals[1]) / (2 * h), r, newton
+
+
+def adjoint_phase(smi, s6):
+    """Phase 18 (module docstring); returns its launch counts."""
+    import numpy as np
+    import torch
+    from sem_tpu_torch.coupling import build_coupled
+    from sem_tpu_torch.coupling import implicit
+    from sem_tpu_torch.utils.profiling import PhaseTimer
+
+    cfg = dict(NORTH_STAR, mtol_nonlin=1e-10)
+    params = {k: cfg[k] for k in ("Re", "Ra", "Pr")}
+    t0 = time.perf_counter()
+    cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **cfg)
+    s = mda.solve(s6)
+    torch.cuda.synchronize()
+    t_state = time.perf_counter() - t0
+    finite, resid = _residual(mda, s)
+    _require(finite and resid <= mda.atol_nonlin,
+             f"adjoint state: residual {resid:.3e} (atol "
+             f"{mda.atol_nonlin:.3e})")
+    x = torch.cat([s.T, s.u, s.v, s.p])
+    N_cd, N_ns = cd.N, ns.N
+
+    def loss_fn(xf):
+        u = xf[N_cd:N_cd + N_ns]
+        v = xf[N_cd + N_ns:N_cd + 2 * N_ns]
+        return torch.sum(u ** 2 + v ** 2)
+
+    restart, inner_restart, inner_dtype = implicit.adjoint_windows(
+        cd, ns, x.shape[0])
+    F = implicit.coupled_residual_fn(cd, ns)
+    pt = {k: torch.tensor(v, dtype=torch.float64, device=x.device)
+          for k, v in params.items()}
+    mv = implicit._vjp(lambda q: F(q, pt), x)
+    w = torch.ones_like(x)
+    ms = []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mv(w)
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    del mv
+
+    # the PhaseTimer split: each piece of the module wrapped in a span
+    timer = PhaseTimer()
+    seen = {}
+    saved = {k: getattr(implicit, k) for k in (
+        "_vjp", "rownorm_estimate", "_fgmres", "parameter_gradients",
+        "solve_adjoint")}
+
+    def span(name, fn):
+        def wrapped(*a, **k):
+            with timer(name):
+                return fn(*a, **k)
+        return wrapped
+
+    def kept(*a, **k):
+        seen["lam"], seen["its"] = out = saved["solve_adjoint"](*a, **k)
+        seen["gbar"] = a[3]
+        return out
+
+    implicit._vjp = span("vjp_setup", saved["_vjp"])
+    implicit.rownorm_estimate = span("row_norms", saved["rownorm_estimate"])
+    implicit._fgmres = span("fgmres", saved["_fgmres"])
+    implicit.parameter_gradients = span("theta_vjp",
+                                        saved["parameter_gradients"])
+    implicit.solve_adjoint = kept
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (loss, grads), n, wall = _counted(lambda: implicit.gradients(
+            cd, ns, x, loss_fn, params))
+    finally:
+        for k, fn in saved.items():
+            setattr(implicit, k, fn)
+    peak = torch.cuda.max_memory_allocated()
+    its, lam, g = seen["its"], seen["lam"], seen["gbar"]
+    r = implicit._vjp(lambda q: F(q, pt), x)(lam) - g
+    raw = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(g))
+    split = {k: f"{v:.2f}" for k, v in timer.totals.items()}
+
+    _line("adjoint", ns="P16_64x64", cd="P16_32x32", n=x.shape[0],
+          state_s=f"{t_state:.2f}", state_residual=f"{resid:.3e}",
+          restart=restart, inner_restart=inner_restart,
+          inner_basis=str(inner_dtype).replace("torch.", ""),
+          outer_its=its, wall_s=f"{wall:.2f}",
+          s_per_it=f"{wall / max(its, 1):.3f}",
+          host_ms_per_transposed_matvec=f"{np.median(ms):.3f}",
+          split_s=split, peak_memory_GB=f"{peak / 1e9:.2f}",
+          raw_residual=f"{raw:.3e}", lam_max=f"{float(lam.abs().max()):.3e}",
+          loss=f"{loss:.8e}",
+          dRa=f"{grads['Ra']:.8e}", dRe=f"{grads['Re']:.8e}",
+          dPr=f"{grads['Pr']:.8e}", launches=n, smi=f"'{smi}'")
+
+    def fd_at(rel):
+        """:func:`fd_derivative` at relative step ``rel``: (fd,
+        relative difference to the adjoint, how); a re-solve that floors is
+        reported as floored."""
+        def build(**kw):
+            return build_coupled(1.0, 1.0, device="cuda",
+                                 **dict(cfg, **kw))[2]
+
+        try:
+            fd, r, newton = fd_derivative(F, x, params, loss_fn, build,
+                                          rel=rel)
+        except RuntimeError as err:
+            return float("nan"), float("inf"), f"floored:'{err}'"
+        return (fd, abs(fd - grads["Ra"]) / max(abs(fd), 1e-300),
+                f"dF_rms={r:.2e},newton={newton}")
+
+    t0 = time.perf_counter()
+    fds = {1e-4: fd_at(1e-4)}
+    if fds[1e-4][1] > 1e-3:
+        for rel in (1e-3, 1e-5):
+            fds[rel] = fd_at(rel)
+    _line("adjoint_fd", fd_s=f"{time.perf_counter() - t0:.2f}", **{
+        f"step_{rel:.0e}": f"fd={fd:.8e},rel_diff={d:.2e},{how}"
+        for rel, (fd, d, how) in fds.items()}, tol="1e-3")
+    # the raw residual is printed beside its bound, not required: at these
+    # states the coupled Jacobian has a one-dimensional null space, λ carries
+    # a large multiple of its left null vector, and J_xᵀλ evaluates at a
+    # rounding floor above 1e-6·‖g‖ (PERF.md, the adjoint); the gradient is held
+    # to FD instead
+    fd_ok = [rel for rel, (_, d, _) in fds.items() if d <= 1e-3]
+    _line("adjoint_requirements", raw_residual_le_1e_6=raw <= 1e-6,
+          fd_within_1e_3_at_steps=fd_ok)
+    _require(fd_ok and all(c == 0 for c in n.values()),
+             f"adjoint failed: FD {fds} (tol 1e-3 at one step at least), "
+             f"launches {n} (must be 0)")
+    return n
+
+
+def _study_cli(tag, args, counted=False):
+    """One study CLI as a subprocess of this script from the checkout's
+    root (killed at ``STUDY_TIMEOUT_S``); its output is printed with a
+    prefix and returned."""
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+    cmd = ([sys.executable, "-c", _RUN_COUNTED] if counted
+           else [sys.executable, "-m"]) + args
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=STUDY_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    for ln in (out + proc.stderr).splitlines()[-40:]:
+        print(f"  {tag}| {ln}", flush=True)
+    _line(tag, exit=proc.returncode, wall_s=f"{wall:.2f}")
+    _require(proc.returncode == 0, f"{tag} exited {proc.returncode}")
+    return out
+
+
+def study_phase(smi):
+    """Phase 19 (module docstring); returns the march's launch counts."""
+    import shutil
+
+    outdir = os.path.join(ROOT, "build", "sem_tpu_torch", "study_smoke")
+    shutil.rmtree(outdir, ignore_errors=True)
+    out = _study_cli("study_march",
+                     ["sem_tpu_torch.study.boussinesq_run", *STUDY_MARCH,
+                      "-outdir", outdir], counted=True)
+    n = json.loads(out.split("LAUNCHES ", 1)[1].splitlines()[0])
+    titles = [f[:-11] for f in os.listdir(outdir) if f.endswith(".stats.json")]
+    _require(len(titles) == 1, f"study march: stats files {titles}")
+    files = {s: os.path.join(outdir, titles[0] + s)
+             for s in (".npz", ".stats.json", ".ckpt.npz")}
+    missing = [f for f in files.values() if not os.path.exists(f)]
+    _require(not missing, f"study march wrote no {missing}")
+    adj = _study_cli("study_adjoint", ["sem_tpu_torch.study.adjoint_hi",
+                                       "-ckpt", files[".ckpt.npz"], "-fd",
+                                       "1"])
+    fd = [ln for ln in adj.splitlines() if ln.startswith("FD d(loss)/d(Ra)")]
+    _require(fd, "adjoint_hi printed no FD line")
+    rel = float(fd[0].rsplit("rel diff ", 1)[1].rstrip(")"))
+    _study_cli("study_summarize", ["sem_tpu_torch.study.summarize", outdir])
+    with open(files[".stats.json"]) as fh:
+        stats = json.load(fh)
+    anchors = DE_VAHL_DAVIS[stats["Ra"]]
+    _line("study", title=titles[0], iters=stats["iters"],
+          anchor_kind=stats["anchor_kind"],
+          u_centerline=stats["u_anchor"], v_centerline=stats["v_anchor"],
+          adjoint_fd_rel_diff=f"{rel:.2e}", launches=n, smi=f"'{smi}'")
+    _require(stats["anchor_kind"] == "centerline"
+             and all(abs(got - want) <= 0.01 * want for got, want in
+                     zip((stats["u_anchor"], stats["v_anchor"]), anchors))
+             and n["apply_system"] > 0 and n["apply_coupled_system"] > 0,
+             f"study march: anchors {stats} (want {anchors}), launches {n}")
+    return n
+
+
+def adjoint_phases(smi, walls, s6):
+    """Phases 17-19 (module docstring); returns the launch counts of phase
+    18 and of phase 19's march by path."""
+    profile_phase(smi, os.path.join(ROOT, "build", "sem_tpu_torch", "trace"))
+    walls.mark("17_profile")
+    by_path = {"adjoint": adjoint_phase(smi, s6)}
+    walls.mark("18_adjoint")
+    by_path["study_ptc_p8"] = study_phase(smi)
+    walls.mark("19_study_cli")
+    return by_path
+
+
+def adjoint_main():
+    """``--adjoint``: the card's line, the build, one north-star solve (the
+    warm-up and phase 18's starting state), then phases 17-19."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from sem_tpu_torch.coupling import build_coupled
+    from sem_tpu_torch.ops import _build
+
+    smi = _smi_line()
+    _build.library()
+    walls = Walls()
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    s6 = mda.solve()
+    walls.mark("6_north_star")
+    adjoint_phases(smi.splitlines()[0], walls, s6)
+    walls.show()
 
 
 def _smi_line():
@@ -1299,11 +1667,16 @@ if __name__ == "__main__":
     ap.add_argument("--ns-options", action="store_true",
                     help="instead of the smoke run: phases 14-16 alone (the "
                          "Schur blocks, Uzawa, assemble.py)")
+    ap.add_argument("--adjoint", action="store_true",
+                    help="instead of the smoke run: phases 17-19 alone (the "
+                         "profile, the implicit adjoint, the study CLIs)")
     a = ap.parse_args()
     if a.ptc_ra is not None:
         ptc_ra_main(a.ptc_ra)
     elif a.ns_options:
         ns_options_main()
+    elif a.adjoint:
+        adjoint_main()
     elif a.rank is None:
         main()
     else:

@@ -13,7 +13,10 @@ explicit dtype: the solvers run in float64, as ``sem_tpu`` does with x64
 enabled, with float32 only inside the Krylov chunks.  TF32 is switched off
 for matmuls and cuDNN: reduced-precision f32 products stall GMRES and pollute
 converged solutions (see ``sem_tpu.operators.mm_precision``).  Nothing on the
-solve path needs autograd; the solvers run under ``torch.no_grad()``.
+solve path needs autograd; the solvers run under ``torch.no_grad()``.  The
+implicit adjoints (:mod:`sem_tpu_torch.coupling.implicit`) use autograd off
+that path: they record graphs of the coupled residual and of the f64
+preconditioner's linear apply only, and launch no CUDA kernel.
 """
 import torch
 

@@ -493,6 +493,17 @@ class NavierStokesSolver:
 
         return mv, pc
 
+    def _pc64_fn(self, r, ul, vl, sigma):
+        """The f64 coupled block preconditioner as a standalone linear apply
+        (Schur block + batched FDM velocity, zero Jacobian diagonals) at the
+        linearization ``(ul, vl)`` and mass shift ``sigma``.  Differentiable
+        in ``r`` by autograd: the implicit adjoints
+        (:mod:`sem_tpu_torch.coupling.implicit`) apply its exact transpose
+        by a vector-Jacobian product."""
+        z = torch.zeros(self.N, dtype=self._dtype, device=r.device)
+        _, pc = self._coupled_ops(ul, vl, (z,) * 4, self._dtype)
+        return pc(r, sigma)
+
     def _update_coupled_f64(self, b, dp0, mtol, hist_out: list = None):
         """Single-level float64 saddle solve (``mixed_precision=False``, and
         escalation step 2 of a floored mixed solve); flexible GMRES when

@@ -25,15 +25,8 @@ from sem_tpu_torch.krylov import KrylovInfo
 from sem_tpu_torch.models.navier_stokes import solve_ns_continued
 
 from tests.test_torch_fdm_krylov import _cd_system
-from tests.torch_parity import one_torch_thread, rel_err, t32, t64  # noqa: F401
-
-
-def _jax_probes(n, dtype, k=8):
-    """The ±1 probes ``sem_tpu.krylov.rownorm_estimate`` draws from
-    ``PRNGKey(0)``."""
-    keys = jax.random.split(jax.random.PRNGKey(0), k)
-    return np.stack([np.asarray(jax.random.rademacher(k_, (n,), dtype=dtype))
-                     for k_ in keys])
+from tests.torch_parity import (_jax_probes, one_torch_thread,  # noqa: F401
+                                rel_err, t32, t64)
 
 
 # ------------------------------- krylov.py ------------------------------- #

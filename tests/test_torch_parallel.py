@@ -336,7 +336,21 @@ with use_group(group):
 np.save(f"{out}/cd_rank{rank}.npy", T)
 res["cd_collectives"] = dict(COLLECTIVES)
 
-# (b, c) run_parallel, QUICK JNK
+# (b, c) run_parallel, QUICK JNK, with the f32 inner iterations of its CD
+# and NS solves counted (ROADMAP C3)
+inner = {"cd": 0, "ns": 0}
+
+def counting(cls, key, attr):
+    orig = cls._get_update
+
+    def wrapped(self, *a, **k):
+        out = orig(self, *a, **k)
+        inner[key] += getattr(self, attr).iterations
+        return out
+    cls._get_update = wrapped
+
+counting(ConvectionDiffusionSolver, "cd", "last_info")
+counting(NavierStokesSolver, "ns", "last_schur_info")
 reset()
 pts21 = np.meshgrid(np.linspace(0, 1, 21), np.linspace(0, 1, 21),
                     indexing="ij")
@@ -344,7 +358,8 @@ T, u, v, s, stats = run_parallel(pts21, 1.0, 1.0, mode="JNK", device="cpu",
                                  return_state=True, **cfg["quick"])
 np.save(f"{out}/run_rank{rank}.npy", np.stack([T, u, v]))
 res.update(stats=stats.as_list(), gmres_iters=stats.gmres_iters,
-           collectives=dict(COLLECTIVES), launches=dict(LAUNCHES))
+           collectives=dict(COLLECTIVES), launches=dict(LAUNCHES),
+           inner=dict(inner))
 
 # (d) PTC under the group: the sigma shift rides through the strip chunks
 reset()
@@ -502,3 +517,51 @@ def test_two_process_ptc_matches_single_process(two_ranks):
         assert abs(x["ptc_gmres_iters"] - mda.stats.gmres_iters) <= 1
         assert all(n > 0 for n in x["ptc_collectives"].values()), x
         assert "ROADMAP deferred item 6" in x["flex_under_group"]
+
+
+def _inner_counts(monkeypatch, fn, cd_cls, ns_cls, **kw):
+    """MDA stats and the summed f32 inner iterations of every CD and NS
+    linear solve of ``fn(PLOT21, 1.0, 1.0, mode="JNK", **QUICK, **kw)``."""
+    inner = {"cd": 0, "ns": 0}
+    for cls, key, attr in ((cd_cls, "cd", "last_info"),
+                           (ns_cls, "ns", "last_schur_info")):
+        def wrapped(self, *a, _orig=cls._get_update, _k=key, _at=attr, **k):
+            out = _orig(self, *a, **k)
+            inner[_k] += int(getattr(self, _at).iterations)
+            return out
+        monkeypatch.setattr(cls, "_get_update", wrapped)
+    stats = fn(PLOT21, 1.0, 1.0, mode="JNK", return_state=True, **QUICK,
+               **kw)[4]
+    monkeypatch.undo()
+    return stats.as_list(), inner
+
+
+def test_two_process_inner_counts_follow_reference(two_ranks, monkeypatch):
+    """ROADMAP C3: decomposing the solves changes the f32 chunks' inner
+    iteration counts through the order of the reductions alone, in sem_tpu
+    as in the port.  At QUICK JNK the CD count is the same single-process,
+    in sem_tpu's run_parallel on 8 devices and on the port's two ranks (77);
+    the NS count moves by a few iterations in both packages (sem_tpu 530 ->
+    528, the port 530 -> 532): each decomposed count within 1 % of its
+    package's single-process count, and the single-process counts equal."""
+    from sem_tpu import (ConvectionDiffusionSolver as JCDS,
+                         NavierStokesSolver as JNSS)
+    from sem_tpu.coupling import run as jax_run
+
+    res, _ = two_ranks
+    monkeypatch.setenv("SEM_TPU_FG_FUSED", "0")
+    monkeypatch.setenv("SEM_TPU_FUSED_PC", "0")
+    j1 = _inner_counts(monkeypatch, jax_run, JCDS, JNSS, device_krylov=False)
+    monkeypatch.setenv("SEM_TPU_FG_FUSED", "0")
+    monkeypatch.setenv("SEM_TPU_FUSED_PC", "0")
+    j8 = _inner_counts(monkeypatch, jax_run_parallel, JCDS, JNSS,
+                       device_krylov=False)
+    t1 = _inner_counts(monkeypatch, run, TCD, TNS, device="cpu")
+    t2 = [(x["stats"], x["inner"]) for x in res]
+    assert t2[0] == t2[1]
+    assert j1[0] == j8[0] == t1[0] == t2[0][0]
+    assert j1[1] == t1[1], (j1, t1)
+    assert j8[1]["cd"] == t2[0][1]["cd"] == t1[1]["cd"]
+    for single, decomposed in ((j1, j8), (t1, t2[0])):
+        assert abs(decomposed[1]["ns"] - single[1]["ns"]) \
+            <= 0.01 * single[1]["ns"], (single, decomposed)

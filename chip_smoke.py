@@ -136,16 +136,36 @@ the last line):
     and ``.ckpt.npz`` written, the march's centerline anchors the de Vahl
     Davis values within 1 %, the adjoint's FD line printed.
 
+20. the examples as subprocesses (``python -m sem_tpu_torch.examples.<name>
+    --check``, through ``runpy`` so that their launches are read), started
+    together: the convection-diffusion example (B1 launched), the lid cavity
+    ``--quick`` and full (B2), the sequential Boussinesq JNK full and
+    ``--quick`` GS and NJ (B1 and B2); then ``boussinesq_parallel --ranks
+    2`` (JNK P4 8×8, its own two rank processes) alone, whose per-rank
+    counts must show B3 and B4 launched on each rank.  Each must exit 0 and
+    print ``CHECK OK``;
+21. ``python -m sem_tpu_torch.bench``: its JSON line on one line; the
+    headline rate must be > 0, the coupled solve's u-anchor 3.653 ± 1e-3, B1
+    launched;
+22. the remaining study CLIs: ``north_star --short`` (u-anchor 3.6531 ±
+    1e-3, residual ≤ atol, B1/B2 launched), ``centerline`` on phase 19's
+    ``.npz`` (equal to its ``.stats.json`` anchors to 1e-9), ``ns_scale 8 16
+    8 32 --mode bouss`` (``'mass'``; B2), ``krylov_econ --direct`` (its
+    resweep share and ms per NS f32 iteration) and ``ptc_band_probe`` on
+    phase 19's ``.ckpt.npz`` (``-P 8 -Ne 32 -Ra 1e5 -its 40``; B2).
+
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
-solve for the warm-up and the state).
+solve for the warm-up and the state), ``python3 chip_smoke.py --drivers``
+phase 19 and then phases 20-22.
 
 Then the wall of every phase and the total; a JSON line with one entry per
 kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 (``call_us``, ``plain_us``), ``device_ms``, ``plain_device_ms`` and
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
-phases 10–12, 14–15, 18 and 19's march; as the last line
+phases 10–12, 14–15, 18, 19's march and 20–22 (rank 0's for the parallel
+example); as the last line
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -698,7 +718,11 @@ def main():
     by_path.update(ns_option_phases(smi, walls, cut=True))
 
     # ---- 17.-19. profile, implicit adjoint, study CLIs ----
-    by_path.update(adjoint_phases(smi, walls, s6))
+    paths, study = adjoint_phases(smi, walls, s6)
+    by_path.update(paths)
+
+    # ---- 20.-22. examples, bench, the remaining study CLIs ----
+    by_path.update(driver_phases(smi, walls, study))
     walls.show()
 
     rows = []
@@ -1371,27 +1395,53 @@ def adjoint_phase(smi, s6):
     return n
 
 
-def _study_cli(tag, args, counted=False):
-    """One study CLI as a subprocess of this script from the checkout's
-    root (killed at ``STUDY_TIMEOUT_S``); its output is printed with a
-    prefix and returned."""
-    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+def _start_cli(args, counted=False, **env):
+    """Start one study CLI as a subprocess of this script from the
+    checkout's root (``env`` added to its environment), its output going to
+    temporary files (a full pipe would stall it while another CLI is waited
+    for)."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1", **env)
     cmd = ([sys.executable, "-c", _RUN_COUNTED] if counted
            else [sys.executable, "-m"]) + args
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=STUDY_TIMEOUT_S)
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err,
+                            text=True)
+    return proc, out, err, time.perf_counter()
+
+
+def _finish_cli(tag, started):
+    """Wait for a CLI of :func:`_start_cli` (killed ``STUDY_TIMEOUT_S``
+    after its start); its output is printed with a prefix and its standard
+    output returned; a non-zero exit raises."""
+    proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, t0 + STUDY_TIMEOUT_S - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     wall = time.perf_counter() - t0
-    out = proc.stdout
-    for ln in (out + proc.stderr).splitlines()[-40:]:
+    texts = []
+    for f in (out, err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    for ln in "".join(texts).splitlines()[-40:]:
         print(f"  {tag}| {ln}", flush=True)
     _line(tag, exit=proc.returncode, wall_s=f"{wall:.2f}")
     _require(proc.returncode == 0, f"{tag} exited {proc.returncode}")
-    return out
+    return texts[0]
+
+
+def _study_cli(tag, args, counted=False):
+    """One study CLI as a subprocess (:func:`_start_cli`), waited for."""
+    return _finish_cli(tag, _start_cli(args, counted))
 
 
 def study_phase(smi):
-    """Phase 19 (module docstring); returns the march's launch counts."""
+    """Phase 19 (module docstring); returns the march's launch counts, its
+    files (by suffix) and its ``.stats.json``."""
     import shutil
 
     outdir = os.path.join(ROOT, "build", "sem_tpu_torch", "study_smoke")
@@ -1399,7 +1449,7 @@ def study_phase(smi):
     out = _study_cli("study_march",
                      ["sem_tpu_torch.study.boussinesq_run", *STUDY_MARCH,
                       "-outdir", outdir], counted=True)
-    n = json.loads(out.split("LAUNCHES ", 1)[1].splitlines()[0])
+    n = _launches(out)
     titles = [f[:-11] for f in os.listdir(outdir) if f.endswith(".stats.json")]
     _require(len(titles) == 1, f"study march: stats files {titles}")
     files = {s: os.path.join(outdir, titles[0] + s)
@@ -1425,18 +1475,181 @@ def study_phase(smi):
                      zip((stats["u_anchor"], stats["v_anchor"]), anchors))
              and n["apply_system"] > 0 and n["apply_coupled_system"] > 0,
              f"study march: anchors {stats} (want {anchors}), launches {n}")
-    return n
+    return n, files, stats
 
 
 def adjoint_phases(smi, walls, s6):
     """Phases 17-19 (module docstring); returns the launch counts of phase
-    18 and of phase 19's march by path."""
+    18 and of phase 19's march by path, and phase 19's files and stats."""
     profile_phase(smi, os.path.join(ROOT, "build", "sem_tpu_torch", "trace"))
     walls.mark("17_profile")
     by_path = {"adjoint": adjoint_phase(smi, s6)}
     walls.mark("18_adjoint")
-    by_path["study_ptc_p8"] = study_phase(smi)
+    by_path["study_ptc_p8"], *study = study_phase(smi)
     walls.mark("19_study_cli")
+    return by_path, study
+
+
+def _launches(out):
+    """The launch counts a counted CLI run printed last."""
+    return json.loads(out.split("LAUNCHES ", 1)[1].splitlines()[0])
+
+
+# phase 20: (tag, module and arguments, kernels that must have launched)
+B1, B2 = "apply_system", "apply_coupled_system"
+EXAMPLES = (
+    ("example_cd", ["convection_diffusion"], (B1,)),
+    ("example_ns_quick", ["navier_stokes", "--quick"], (B2,)),
+    ("example_ns", ["navier_stokes"], (B2,)),
+    ("example_seq_jnk", ["boussinesq_sequential"], (B1, B2)),
+    ("example_seq_gs_quick", ["boussinesq_sequential", "--quick", "--mode",
+                              "GS"], (B1, B2)),
+    ("example_seq_nj_quick", ["boussinesq_sequential", "--quick", "--mode",
+                              "NJ"], (B1, B2)))
+
+
+def example_phase(smi):
+    """Phase 20 (module docstring); returns the launch counts by path (rank
+    0's for the parallel example)."""
+    import ast
+
+    by_path = {}
+    # all at once (one host thread each): their walls are mostly process
+    # start, and none is timed
+    started = [_start_cli([f"sem_tpu_torch.examples.{name}", "--check",
+                           *args], counted=True, OMP_NUM_THREADS="1")
+               for _, (name, *args), _ in EXAMPLES]
+    try:
+        for (tag, _, need), job in zip(EXAMPLES, started):
+            out = _finish_cli(tag, job)
+            n = by_path[tag] = _launches(out)
+            _line(tag, check_ok="CHECK OK" in out, launches=n,
+                  smi=f"'{smi}'")
+            _require("CHECK OK" in out and all(n[k] > 0 for k in need),
+                     f"{tag}: no CHECK OK, or none of {need} launched: {n}")
+    finally:
+        for proc, *_ in started:        # a failure leaves none running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = _study_cli("example_parallel",
+                     ["sem_tpu_torch.examples.boussinesq_parallel",
+                      "--check", "--ranks", "2"])
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("kernel launches by rank: ")]
+    _require(line, "boussinesq_parallel printed no launch counts")
+    ranks = ast.literal_eval(line[0].split(": ", 1)[1])
+    _line("example_parallel", check_ok="CHECK OK" in out, ranks=len(ranks),
+          launches_by_rank=ranks, smi=f"'{smi}'")
+    _require("CHECK OK" in out and len(ranks) == 2
+             and all(n["apply_system_sharded"] > 0
+                     and n["apply_coupled_system_sharded"] > 0
+                     for n in ranks),
+             f"example_parallel: no CHECK OK, or a rank launched no B3/B4: "
+             f"{ranks}")
+    by_path["example_parallel_rank0"] = ranks[0]
+    return by_path
+
+
+def bench_phase(smi):
+    """Phase 21 (module docstring); returns its launch counts by path."""
+    out = _study_cli("bench", ["sem_tpu_torch.bench"], counted=True)
+    n = _launches(out)
+    b = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+    _line("bench", gdof_s_p16_64x64=f"{b['value']:.4f}",
+          gdof_s_p8_32x32=f"{b['device_apply_p8_32x32_gdof_s']:.4f}",
+          csr_gdof_s=f"{b['csr_pinned_gdof_s']:.5f}",
+          csr_source=f"'{b['csr_source']}'",
+          vs_baseline=f"{b['vs_baseline']:.2f}",
+          solve_p8_16x16_s=f"{b['coupled_solve_p8_16x16_s']:.3f}",
+          u_anchor=f"{b['coupled_solve_u_anchor']:.4f}", launches=n,
+          card=f"'{b['card']}'", power_limit=f"'{b['power_limit']}'")
+    _require(b["value"] > 0
+             and abs(b["coupled_solve_u_anchor"] - 3.653) <= 1e-3
+             and n[B1] > 0,
+             f"bench: value {b['value']}, u-anchor "
+             f"{b['coupled_solve_u_anchor']} (want 3.653 +- 1e-3), launches "
+             f"{n}")
+    return {"bench": n}
+
+
+def study_cli_phase(smi, study):
+    """Phase 22 (module docstring), on phase 19's files and stats; returns
+    the launch counts by path."""
+    import re
+
+    files, stats = study
+    by_path = {}
+    num = r"([-+0-9.eE]+|inf|nan)"
+
+    out = _study_cli("north_star_short", ["sem_tpu_torch.study.north_star",
+                                          "--short"], counted=True)
+    n = by_path["north_star_short"] = _launches(out)
+    m = re.search(r"NORTH STAR: .* ladder solve ([0-9.]+)s; u_max\*RePr = "
+                  + num + r" .*\|r\| = " + num + r" <= atol " + num, out)
+    _require(m, "north_star printed no NORTH STAR line")
+    wall, u, r, atol = map(float, m.groups())
+    _line("north_star_short", ladder_s=wall, u_anchor=u, residual=r,
+          atol=atol, launches=n, smi=f"'{smi}'")
+    _require(abs(u - 3.6531) <= 1e-3 and r <= atol
+             and n[B1] > 0 and n[B2] > 0,
+             f"north_star --short: u-anchor {u}, residual {r} (atol "
+             f"{atol}), launches {n}")
+
+    out = _study_cli("centerline", ["sem_tpu_torch.study.centerline",
+                                    files[".npz"], "8", "32"])
+    got = [float(re.search(r"= " + num, ln).group(1))
+           for ln in out.splitlines() if "centerline) = " in ln]
+    want = [stats["u_anchor"], stats["v_anchor"]]
+    _line("centerline", got=got, stats_json=want)
+    _require(len(got) == 2 and all(abs(g - w) <= 1e-9
+                                   for g, w in zip(got, want)),
+             f"centerline: {got} against phase 19's stats {want}")
+
+    # the north-star NS physics: the lid cavity at Re=400 with 'mass' floors
+    # at P8 16×16 in both packages (Newton stagnates, f64 rescues stall)
+    out = _study_cli("ns_scale", ["sem_tpu_torch.study.ns_scale", "8", "16",
+                                  "8", "32", "--mode", "bouss"], counted=True)
+    n = by_path["ns_scale"] = _launches(out)
+    rows = [ln for ln in out.splitlines() if ln.startswith("[ns_scale]")]
+    for ln in rows:
+        print(f"  {ln}", flush=True)
+    _require(len(rows) == 2 and n[B2] > 0,
+             f"ns_scale: rows {rows}, launches {n}")
+
+    out = _study_cli("krylov_econ_direct", ["sem_tpu_torch.study.krylov_econ",
+                                            "--direct"], counted=True)
+    n = by_path["krylov_econ_direct"] = _launches(out)
+    m = re.search(r"RESULT-direct .*: ([0-9.]+)s iters=(\d+) resweeps=(\d+) "
+                  r"resweep_share=" + num, out)
+    _require(m, "krylov_econ printed no RESULT-direct line")
+    _line("krylov_econ_direct", solve_s=m.group(1), ns_f32_iters=m.group(2),
+          resweeps=m.group(3), resweep_share=m.group(4),
+          ms_per_it=f"{1e3 * float(m.group(1)) / max(int(m.group(2)), 1):.3f}",
+          launches=n, smi=f"'{smi}'")
+    _require(n[B1] > 0 and n[B2] > 0, f"krylov_econ: launches {n}")
+
+    out = _study_cli("ptc_band_probe", [
+        "sem_tpu_torch.study.ptc_band_probe", "-ckpt", files[".ckpt.npz"],
+        "-P", "8", "-Ne", "32", "-Ra", "1e5", "-its", "40"], counted=True)
+    n = by_path["ptc_band_probe"] = _launches(out)
+    cells = [ln.strip() for ln in out.splitlines()
+             if ln.strip().startswith("dt=")]
+    _line("ptc_band_probe", cells=len(cells), launches=n, smi=f"'{smi}'")
+    _require(len(cells) == 1 and n[B2] > 0,
+             f"ptc_band_probe: cells {cells}, launches {n}")
+    return by_path
+
+
+def driver_phases(smi, walls, study):
+    """Phases 20-22 (module docstring); returns the launch counts by
+    path."""
+    by_path = example_phase(smi)
+    walls.mark("20_examples")
+    by_path.update(bench_phase(smi))
+    walls.mark("21_bench")
+    by_path.update(study_cli_phase(smi, study))
+    walls.mark("22_study_clis")
     return by_path
 
 
@@ -1459,6 +1672,25 @@ def adjoint_main():
     s6 = mda.solve()
     walls.mark("6_north_star")
     adjoint_phases(smi.splitlines()[0], walls, s6)
+    walls.show()
+
+
+def drivers_main():
+    """``--drivers``: the card's line, the build, phase 19's march and
+    study CLIs (the files phase 22 reads), then phases 20-22."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    from sem_tpu_torch.ops import _build
+
+    smi = _smi_line().splitlines()[0]
+    _build.library()
+    walls = Walls()
+    _, *study = study_phase(smi)
+    walls.mark("19_study_cli")
+    driver_phases(smi, walls, study)
     walls.show()
 
 
@@ -1670,9 +1902,15 @@ if __name__ == "__main__":
     ap.add_argument("--adjoint", action="store_true",
                     help="instead of the smoke run: phases 17-19 alone (the "
                          "profile, the implicit adjoint, the study CLIs)")
+    ap.add_argument("--drivers", action="store_true",
+                    help="instead of the smoke run: phase 19, then phases "
+                         "20-22 alone (the examples, the bench, the study "
+                         "CLIs)")
     a = ap.parse_args()
     if a.ptc_ra is not None:
         ptc_ra_main(a.ptc_ra)
+    elif a.drivers:
+        drivers_main()
     elif a.ns_options:
         ns_options_main()
     elif a.adjoint:

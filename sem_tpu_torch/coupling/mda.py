@@ -307,7 +307,6 @@ class BoussinesqMDA:
         self.time_deadline = (None if time_deadline is None
                               else float(time_deadline))
         self._t_start = None
-        self._last_ckpt_iter = None
         self._ptc_dt_current = None  # live PTC Δt, persisted in checkpoints
         self.stats = MDAStats()
 
@@ -390,7 +389,6 @@ class BoussinesqMDA:
                       if self._ptc_dt_current is not None else None)
             save_checkpoint(self.checkpoint_path, s, self.checkpoint_config,
                             self.stats, extras=extras)
-            self._last_ckpt_iter = k
 
     def _check_budget(self, s: CoupledState, k: int, norm: float):
         """Graceful wall-clock-budget exit: checkpoint the iterate and raise
@@ -405,9 +403,10 @@ class BoussinesqMDA:
             return
         if exhausted:
             self.stats.nonlinear_iters = k
-            # skip the forced save if this iterate was just checkpointed
-            if self._last_ckpt_iter != k:
-                self._maybe_checkpoint(s, k, force=True)
+            # saved even where the cadence has just saved this iterate: that
+            # save holds no iteration count (``stats.nonlinear_iters`` is set
+            # only here and at convergence)
+            self._maybe_checkpoint(s, k, force=True)
             where = (f"; state checkpointed to {self.checkpoint_path}"
                      if self.checkpoint_path else "")
             raise RuntimeError(
@@ -424,7 +423,6 @@ class BoussinesqMDA:
         s = s0.copy() if s0 is not None else CoupledState(zcd, zns, zns, zns)
         self.stats = MDAStats()
         self._t_start = time.monotonic()
-        self._last_ckpt_iter = None
         warm = s0 is not None
         if self.mode == "GS":
             s = self._solve_gs(s)

@@ -36,12 +36,13 @@ def parse_title(name):
     return mode, float(Re), float(Ra), float(Pr), int(P), int(Ne)
 
 
-def centerline_anchors(u_e, v_e, P, N_e, Re=1e3, Pr=0.71, L=1.0, n=2001):
+def centerline_anchors(u_e, v_e, P, N_e, Re=1e3, Pr=0.71, L=1.0, n=2001,
+                       device="cpu"):
     """(u_max·RePr on x=L/2, v_max·RePr on y=L/2) from element-scattered
-    velocity fields (the study's ``.npz`` layout), evaluated on the CPU: the
-    values the de Vahl Davis (1983) benchmark reports (34.73 / 68.59 at
-    Ra=1e5, 64.63 / 219.36 at Ra=1e6); at high Ra the domain maxima lie off
-    the centerlines."""
+    velocity fields (the study's ``.npz`` layout), evaluated on ``device``
+    (the CPU by default): the values the de Vahl Davis (1983) benchmark
+    reports (34.73 / 68.59 at Ra=1e5, 64.63 / 219.36 at Ra=1e6); at high Ra
+    the domain maxima lie off the centerlines."""
     from sem_tpu_torch.interp import PointEvaluator
     from sem_tpu_torch.mesh import Grid2D
 
@@ -51,7 +52,7 @@ def centerline_anchors(u_e, v_e, P, N_e, Re=1e3, Pr=0.71, L=1.0, n=2001):
         # element-scattered -> global (any owner copy works: C0 continuity)
         g = np.zeros(grid.N)
         g[grid.gidx_flat] = np.asarray(f_e).reshape(-1)
-        return torch.as_tensor(g, dtype=torch.float64)
+        return torch.as_tensor(g, dtype=torch.float64, device=device)
 
     line = np.linspace(0.0, L, n)
     half = np.array([0.5 * L])

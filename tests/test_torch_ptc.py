@@ -362,6 +362,30 @@ def test_budget_exit_checkpoints_and_resumes(monkeypatch, tmp_path):
     assert "checkpointed" not in str(err.value)
 
 
+def test_budget_exit_on_a_cadence_step_records_its_count(monkeypatch,
+                                                         tmp_path):
+    """The budget of ``test_budget_exit_checkpoints_and_resumes`` tripping
+    after step 3 where ``checkpoint_every=3`` has just saved that step: the
+    checkpoint still holds the step count 3, the discipline counters and
+    ``ptc_dt`` (the cadence save alone holds ``nonlinear_iters`` 0)."""
+    path = str(tmp_path / "ptc.npz")
+    _, _, mda = build_coupled(1.0, 1.0, mode="PTC", precon="bj", ptc_dt0=1.0,
+                              device="cpu", checkpoint_path=path,
+                              checkpoint_every=3, time_budget_s=3.5, **PTC_KW)
+    ticks = itertools.count(1.0)
+    monkeypatch.setattr(tmda, "time", types.SimpleNamespace(
+        monotonic=lambda: float(next(ticks))))
+    with pytest.raises(RuntimeError, match="wall-clock budget exhausted "
+                                           "after 3 iterations.*checkpointed"):
+        mda.solve()
+    _, _, iters, extras = tckpt.load_checkpoint(path, with_extras=True,
+                                                device="cpu")
+    assert iters[:3] == [mda.cd_comp.iter_count_solve,
+                         mda.ns_comp.iter_count_solve, 3]
+    assert iters[0] > 0 and iters[3] == mda.stats.gmres_iters > 0
+    assert 0 < extras["ptc_dt"] != 1.0
+
+
 @pytest.mark.slow
 def test_ptc_reaches_ra_1e5_from_zero_port():
     """tests/test_ptc.py:203-220 on the port: steady Ra=1e5 from zero via

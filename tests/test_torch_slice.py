@@ -184,7 +184,16 @@ def test_port_never_imports_jax():
     code = ("import sys, sem_tpu_torch, sem_tpu_torch.coupling, "
             "sem_tpu_torch.convert, sem_tpu_torch.ops, sem_tpu_torch.ptc, "
             "sem_tpu_torch.utils.checkpoint, sem_tpu_torch.parallel, "
-            "sem_tpu_torch.assemble; "
+            "sem_tpu_torch.assemble, sem_tpu_torch.bench, "
+            "sem_tpu_torch.examples.convection_diffusion, "
+            "sem_tpu_torch.examples.navier_stokes, "
+            "sem_tpu_torch.examples.boussinesq_sequential, "
+            "sem_tpu_torch.examples.boussinesq_parallel, "
+            "sem_tpu_torch.study.north_star, sem_tpu_torch.study.centerline, "
+            "sem_tpu_torch.study.ns_scale, sem_tpu_torch.study.krylov_econ, "
+            "sem_tpu_torch.study.ptc_band_probe, "
+            "sem_tpu_torch.study.schur_spectrum, "
+            "sem_tpu_torch.study.coupled_pc_diag; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules), 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

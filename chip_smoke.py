@@ -154,18 +154,36 @@ the last line):
     resweep share and ms per NS f32 iteration) and ``ptc_band_probe`` on
     phase 19's ``.ckpt.npz`` (``-P 8 -Ne 32 -Ra 1e5 -its 40``; B2).
 
+23. the fused and on-device coupled Krylov programs: (a) phase 6's solve
+    with ``fused=True`` (the fused host-FGMRES step as CUDA graphs and the
+    two-round preconditioner): walls of the first solve (the capture
+    included) and of a warm one, stats, coupled GMRES iterations and B1/B2
+    launches (> 0) beside phase 6's; the residual must meet atol and the
+    u-anchor 3.6531 ± 1e-3; the host synchronizations of one replayed step
+    and its scalar read (``torch.cuda.set_sync_debug_mode("warn")``, the
+    warnings recorded) must be 1; (b) three replayed steps against their
+    eager twins on the same inputs: the largest differences in V, Z, H, g
+    and the residual, ≤ 1e-12 relative; (c) ``device_krylov=True`` on NS
+    P=16 32×32 / CD P=16 16×16 (855,556 DOF) beside the host JNK solve of
+    the same grids, both to the coupled RMS 1e-10: walls, windows, stats, GMRES iterations, launches of
+    the whole solve and inside the windows (B1-B4 all 0 there), the
+    residual within atol and the u-anchor within 1e-3 of the host solve's;
+    (d) phase 11's march with ``fused=True`` beside phase 11's: steps,
+    stats, launches (B1/B2 > 0), wall and phase 11's anchors.
+
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
 solve for the warm-up and the state), ``python3 chip_smoke.py --drivers``
-phase 19 and then phases 20-22.
+phase 19 and then phases 20-22, ``python3 chip_smoke.py --krylov`` phases
+6, 11 and 23.
 
 Then the wall of every phase and the total; a JSON line with one entry per
 kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 (``call_us``, ``plain_us``), ``device_ms``, ``plain_device_ms`` and
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
-phases 10–12, 14–15, 18, 19's march and 20–22 (rank 0's for the parallel
-example); as the last line
+phases 10–12, 14–15, 18, 19's march, 20–22 (rank 0's for the parallel
+example) and 23; as the last line
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -649,6 +667,9 @@ def main():
             f"launches {launches}")
 
     s6 = s
+    beside = {"north_star": dict(solve_s=t_solve, stats=mda.stats.as_list(),
+                                 gmres_iters=mda.stats.gmres_iters,
+                                 launches=launches)}
     walls.mark("6_north_star")
 
     # ---- 7. kernels B3/B4 on row strips, halos cut from the full field ----
@@ -712,7 +733,7 @@ def main():
 
     # ---- 10.-13. continuation, PTC, flexible chunks, checkpoints ----
     by_path = continuation_phases(smi, direct_s=t_build + t_solve,
-                                  walls=walls)
+                                  walls=walls, beside=beside)
 
     # ---- 14.-16. Schur blocks, Uzawa, assemble.py ----
     by_path.update(ns_option_phases(smi, walls, cut=True))
@@ -723,6 +744,9 @@ def main():
 
     # ---- 20.-22. examples, bench, the remaining study CLIs ----
     by_path.update(driver_phases(smi, walls, study))
+
+    # ---- 23. the fused and on-device coupled Krylov programs ----
+    by_path.update(krylov_phase(smi, walls, beside))
     walls.show()
 
     rows = []
@@ -841,7 +865,9 @@ def ptc_march(tag, smi, s0=None, **kw):
           f64_fallback_count=ns.f64_fallback_count,
           besteffort_floor_count=ns.besteffort_floor_count, launches=n,
           b2_per_gmres_it=f"{b2_per_it:.2f}",
-          b2_per_ns_inner_it=f"{b2 / max(spent['ns_inner_its'], 1):.2f}",
+          # the fused preconditioner runs its chunks without solve_linear
+          b2_per_ns_inner_it=(f"{b2 / spent['ns_inner_its']:.2f}"
+                              if spent["ns_inner_its"] else "not_counted"),
           smi=f"'{smi}'")
     _require(finite and resid <= mda.atol_nonlin
              and all(abs(got - want) <= 0.01 * want
@@ -853,9 +879,10 @@ def ptc_march(tag, smi, s0=None, **kw):
     return mda, n, wall, b2_per_it
 
 
-def continuation_phases(smi, direct_s=None, walls=None):
+def continuation_phases(smi, direct_s=None, walls=None, beside=None):
     """Phases 10-13 (module docstring).  Returns the kernel launch counts of
-    phases 10-12 by path; any failed requirement raises."""
+    phases 10-12 by path; any failed requirement raises.  Phase 11's march
+    goes into ``beside["ptc"]`` (phase 23 prints it beside its own)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -930,6 +957,8 @@ def continuation_phases(smi, direct_s=None, walls=None):
     # ---- 11./12. PTC at Ra=1e5, plain and flexible chunks ----
     mda11, by_path["ptc"], wall11, b2_plain = ptc_march(
         "ptc", smi)
+    if beside is not None:
+        beside["ptc"] = ptc_summary(mda11, by_path["ptc"], wall11)
     walls.mark("11_ptc")
     _, by_path["ptc_velo_inner"], _, b2_flex = ptc_march(
         "ptc_velo_inner", smi, velo_inner=5)
@@ -968,6 +997,199 @@ def continuation_phases(smi, direct_s=None, walls=None):
             f"the whole one {mda11.stats.nonlinear_iters}")
     walls.mark("13_checkpoint")
     return by_path
+
+
+def ptc_summary(mda, launches, wall):
+    """What phase 23 prints of a PTC march beside its own."""
+    return dict(steps=mda.stats.nonlinear_iters, stats=mda.stats.as_list(),
+                gmres_iters=mda.stats.gmres_iters, wall_s=round(wall, 2),
+                launches=launches)
+
+
+def krylov_phase(smi, walls, beside):
+    """Phase 23 (module docstring): (a)-(d) beside phase 6's solve and
+    phase 11's march (``beside``).  Returns the kernel launch counts by path;
+    any failed requirement raises."""
+    import torch
+    from sem_tpu_torch.coupling import build_coupled
+    from sem_tpu_torch.ops import kernels
+
+    by_path = {}
+
+    # ---- (a) the fused host FGMRES at the north star ----
+    _, ns, mda = build_coupled(1.0, 1.0, device="cuda", fused=True,
+                               **NORTH_STAR)
+    s, n, wall_first = _counted(mda.solve)
+    finite, resid = _residual(mda, s)
+    u_anchor = float(s.u.abs().max()) * 1e3 * 0.71
+    stats, its = mda.stats.as_list(), mda.stats.gmres_iters
+    _, _, wall_warm = _counted(mda.solve)
+    by_path["krylov_fused_jnk"] = n
+    # one replayed step and its scalar read under the sync debug mode
+    mda._linearize(s)
+    F = mda._residuals(s)
+    start, step, precon_split = mda._fg_fused(mtol=mda.mtol_precon)
+    out = start(1e-3 * F, -F)
+    z = precon_split(*out[6:-1])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            marks = [len(seen)]
+            res_t = step(*out[:6], 0, *z)[-1]
+            marks.append(len(seen))
+            float(res_t)
+            marks.append(len(seen))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def syncs_in(a, b):
+        return [f"{w.filename}:{w.lineno}" for w in seen[a:b]
+                if "synchroniz" in str(w.message)]
+
+    in_step, in_read = syncs_in(*marks[:2]), syncs_in(*marks[1:])
+    syncs = len(in_step) + len(in_read)
+    sites = dict(step=in_step, read=in_read,
+                 outside=syncs_in(0, marks[0]) + syncs_in(marks[2], None))
+    _line("krylov_fused_jnk", ns="P16_64x64", cd="P16_32x32", dof=mda.DOF,
+          first_solve_s=f"{wall_first:.2f}", warm_solve_s=f"{wall_warm:.2f}",
+          stats=stats, gmres_iters=its, launches=n,
+          phase6_solve_s=f"{beside['north_star']['solve_s']:.2f}",
+          phase6_stats=beside["north_star"]["stats"],
+          phase6_gmres_iters=beside["north_star"]["gmres_iters"],
+          phase6_launches=beside["north_star"]["launches"],
+          residual=f"{resid:.3e}", atol=f"{mda.atol_nonlin:.3e}",
+          u_anchor=f"{u_anchor:.4f}", syncs_per_replayed_step=syncs,
+          sync_sites=sites, smi=f"'{smi}'")
+    _require(finite and resid <= mda.atol_nonlin
+             and abs(u_anchor - 3.6531) <= 1e-3
+             and n["apply_system"] > 0 and n["apply_coupled_system"] > 0
+             and syncs == 1,
+             f"fused JNK failed: finite={finite} residual {resid:.3e} (atol "
+             f"{mda.atol_nonlin:.3e}) u_anchor {u_anchor:.4f} launches {n} "
+             f"syncs per replayed step {syncs}")
+
+    # ---- (b) the captured start/step against their eager twins ----
+    graphs = mda._fg_graphs
+    startf, stepf = mda._build_fg_fused()
+    x, b = 1e-3 * F, -F
+    got = [t.clone() for t in start(x, b)]
+    ref_out = [t.clone() for t in startf(x, b, *graphs.lin)]
+    diffs = {}
+
+    def compare(tag, a, r):
+        scale = max(float(r.double().abs().max()), 1e-300)
+        d = float((a.double() - r.double()).abs().max()) / scale
+        diffs[tag] = max(diffs.get(tag, 0.0), d)
+
+    for tag, i in (("V", 0), ("Z", 1), ("H", 2), ("g", 5), ("res", -1)):
+        compare(tag, got[i], ref_out[i])
+    state_g, state_e = start(x, b)[:6], [t.clone() for t in ref_out[:6]]
+    vp = got[6:-1]
+    for k in range(3):
+        z = [t.clone() for t in precon_split(*vp)]
+        out_g = step(*state_g, k, *z)
+        out_e = stepf(*state_e, torch.tensor(k, device=x.device), *z,
+                      *graphs.lin)
+        for tag, i in (("V", 0), ("Z", 1), ("H", 2), ("g", 5), ("res", -1)):
+            compare(tag, out_g[i], out_e[i])
+        vp = [t.clone() for t in out_g[6:-1]]
+    torch.cuda.synchronize()
+    worst = max(diffs.values())
+    _line("krylov_graph_vs_eager", steps=3,
+          max_rel_diff={k: f"{v:.3e}" for k, v in diffs.items()},
+          bitwise=worst == 0.0, tol="1e-12")
+    _require(worst <= 1e-12, f"graph against eager: {diffs}")
+    del mda, graphs, start, step
+    torch.cuda.empty_cache()
+    walls.mark("23a_23b_fused_jnk")
+
+    # ---- (c) the on-device windows beside the host JNK solve ----
+    # at RMS 1e-10: the main path's 1e-8 admits ~3e-3 in the u-anchor on
+    # these grids (the smallest stiffness eigenvalues are ~1e-4); on an
+    # H100 the two solves gave 3.6504 (device) and 3.6532 (host) there,
+    # both residuals within atol
+    grids = dict(NORTH_STAR, N_ex_ns=32, N_ey_ns=32, N_ex_cd=16, N_ey_cd=16,
+                 mtol_nonlin=1e-10)
+    runs = {}
+    for tag, kw in (("host", {}), ("device", dict(device_krylov=True))):
+        _, _, mda = build_coupled(1.0, 1.0, device="cuda", **grids, **kw)
+        inside = dict.fromkeys(kernels.LAUNCHES, 0)
+        windows = [0]
+        window = mda._jnk_window
+
+        def counted_window(*a, _w=window, **k):
+            before = dict(kernels.LAUNCHES)
+            out = _w(*a, **k)
+            windows[0] += 1
+            for key in inside:
+                inside[key] += kernels.LAUNCHES[key] - before[key]
+            return out
+
+        mda._jnk_window = counted_window
+        s, n, wall = _counted(mda.solve)
+        finite, resid = _residual(mda, s)
+        runs[tag] = dict(wall_s=f"{wall:.2f}", windows=windows[0],
+                         stats=mda.stats.as_list(),
+                         gmres_iters=mda.stats.gmres_iters, launches=n,
+                         window_launches=inside, residual=f"{resid:.3e}",
+                         atol=f"{mda.atol_nonlin:.3e}", finite=finite,
+                         resid_ok=resid <= mda.atol_nonlin,
+                         u_anchor=float(s.u.abs().max()) * 1e3 * 0.71)
+    by_path["krylov_device_jnk"] = runs["device"]["launches"]
+    du = abs(runs["device"]["u_anchor"] - runs["host"]["u_anchor"])
+    _line("krylov_device_jnk", ns="P16_32x32", cd="P16_16x16", dof=mda.DOF,
+          **{f"{tag}_{k}": (f"{v:.4f}" if k == "u_anchor" else v)
+             for tag, r in runs.items() for k, v in r.items()
+             if k not in ("finite", "resid_ok")},
+          u_anchor_diff=f"{du:.2e}", smi=f"'{smi}'")
+    dev = runs["device"]
+    _require(all(r["finite"] and r["resid_ok"] for r in runs.values())
+             and runs["host"]["windows"] == 0 and dev["windows"] > 0
+             and all(v == 0 for v in dev["window_launches"].values())
+             and du <= 1e-3,
+             f"device JNK failed: {runs}")
+    walls.mark("23c_device_jnk")
+
+    # ---- (d) phase 11's march with the fused programs ----
+    mda, by_path["krylov_fused_ptc"], wall, _ = ptc_march(
+        "ptc_fused", smi, fused=True)
+    _line("ptc_fused_vs_phase11",
+          fused=ptc_summary(mda, by_path["krylov_fused_ptc"], wall),
+          phase11=beside.get("ptc", "not_run"))
+    walls.mark("23d_fused_ptc")
+    return by_path
+
+
+def krylov_main():
+    """``--krylov``: the card's line, the build, phase 6's solve and phase
+    11's march (what phase 23 prints beside its own), then phase 23."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from sem_tpu_torch.coupling import build_coupled
+    from sem_tpu_torch.ops import _build
+
+    smi = _smi_line().splitlines()[0]
+    _build.library()
+    walls = Walls()
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    mda.solve()     # warm-up
+    mda.cd_comp.iter_count_solve = mda.ns_comp.iter_count_solve = 0
+    s, n, wall = _counted(mda.solve)
+    beside = {"north_star": dict(solve_s=wall, stats=mda.stats.as_list(),
+                                 gmres_iters=mda.stats.gmres_iters,
+                                 launches=n)}
+    walls.mark("6_north_star")
+    mda11, n11, wall11, _ = ptc_march("ptc", smi)
+    beside["ptc"] = ptc_summary(mda11, n11, wall11)
+    walls.mark("11_ptc")
+    krylov_phase(smi, walls, beside)
+    walls.show()
 
 
 def lid_cavity_run(tag, smi, **kw):
@@ -1902,6 +2124,10 @@ if __name__ == "__main__":
     ap.add_argument("--adjoint", action="store_true",
                     help="instead of the smoke run: phases 17-19 alone (the "
                          "profile, the implicit adjoint, the study CLIs)")
+    ap.add_argument("--krylov", action="store_true",
+                    help="instead of the smoke run: phases 6 and 11, then "
+                         "phase 23 (the fused and on-device coupled Krylov "
+                         "programs)")
     ap.add_argument("--drivers", action="store_true",
                     help="instead of the smoke run: phase 19, then phases "
                          "20-22 alone (the examples, the bench, the study "
@@ -1911,6 +2137,8 @@ if __name__ == "__main__":
         ptc_ra_main(a.ptc_ra)
     elif a.drivers:
         drivers_main()
+    elif a.krylov:
+        krylov_main()
     elif a.ns_options:
         ns_options_main()
     elif a.adjoint:

@@ -178,7 +178,7 @@ def build_coupled(L_x: float, L_y: float,
                   mtol_internal=1e-13, mtol_precon=1e-4, iprint=True,
                   device_krylov=None, forcing=1e-3, mtol_subsolve=1e-6,
                   velo_inner=0, schur_precon=None, device="cuda",
-                  **mda_kwargs):
+                  fused=False, **mda_kwargs):
     """Construct solvers, components and the MDA for the Boussinesq problem.
 
     Parameter names and defaults are those of ``sem_tpu``'s
@@ -191,8 +191,9 @@ def build_coupled(L_x: float, L_y: float,
     ``'pcd'``) pass through to the NS solver; like the reference's, this
     function has no ``linear_solver`` argument (an Uzawa NS block is built
     by hand: the two solvers, their components, :class:`BoussinesqMDA`).
-    ``device_krylov=True`` is not ported yet and raises
-    ``NotImplementedError``.
+    ``device_krylov`` and ``fused`` choose the program of the coupled linear
+    solves (:class:`BoussinesqMDA`); ``fused=True`` is the reference's
+    default host path, ``False`` keeps the un-fused host FGMRES.
     """
     cd = ConvectionDiffusionSolver(L_x=L_x, L_y=L_y, Pe=Re * Pr,
                                    P=P_cd, N_ex=N_ex_cd, N_ey=N_ey_cd,
@@ -219,7 +220,8 @@ def build_coupled(L_x: float, L_y: float,
                         mtol_gmres=mtol_gmres, restart=restart,
                         mtol_precon=mtol_precon, iprint=iprint,
                         device_krylov=device_krylov, forcing=forcing,
-                        mtol_subsolve=mtol_subsolve, **mda_kwargs)
+                        mtol_subsolve=mtol_subsolve, fused=fused,
+                        **mda_kwargs)
     return cd, ns, mda
 
 
@@ -232,7 +234,7 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
         mtol_nonlin=1e-9, AGi=8, AGr=0.8, AGc=0.2,
         mtol_gmres=1e-10, restart=20,
         mtol_internal=1e-13, mtol_precon=1e-4, iprint=True,
-        return_state=False, device_krylov=None, device="cuda"):
+        return_state=False, device_krylov=None, device="cuda", fused=False):
     """Solve the coupled Boussinesq problem; return (T, u, v) at plot points
     as NumPy arrays (plus the state and the MDA stats with
     ``return_state``)."""
@@ -242,7 +244,8 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
                                 mode, mtol_nonlin, AGi, AGr, AGc,
                                 mtol_gmres, restart, mtol_internal,
                                 mtol_precon, iprint,
-                                device_krylov=device_krylov, device=device)
+                                device_krylov=device_krylov, device=device,
+                                fused=fused)
     state = mda.solve()
     T_plot = cd._get_interpol(state.T, points_plot)
     u_plot = ns._get_interpol(state.u, points_plot)

@@ -27,8 +27,18 @@ Both Newton modes start with one Gauss-Seidel sweep (the reference's
 ``solve_subsystems=True, max_sub_solves=0``).  Tolerances follow the RMS
 convention: absolute tolerance = mtol·√DOF with DOF = 3·N_ns + N_cd.
 
-Not ported: the fused and on-device FGMRES programs of the reference
-(``device_krylov=True``; ROADMAP deferred item 5).
+Two other programs solve the coupled linear systems, as in the reference:
+
+* ``fused=True`` (the reference's default ``SEM_TPU_FG_FUSED=1`` with
+  ``SEM_TPU_FUSED_PC=1``): the host FGMRES takes one fused step per
+  iteration (coupled matvec, flexible-basis write, f32 CGS2 and the Givens
+  recurrence on the device; on a CUDA device captured once as a CUDA graph)
+  and reads back one scalar, and its preconditioner is the fixed two-round
+  policy (:meth:`BoussinesqMDA._build_pc_fused`);
+* ``device_krylov=True``: the JNK (and, up to :data:`PTC_DEVICE_MAX_DOF`,
+  the PTC) linear solves run as warm-started windows of
+  :func:`sem_tpu_torch.krylov.fgmres` with float64 nested discipline solves
+  (:meth:`BoussinesqMDA._fgmres_device`).
 """
 from __future__ import annotations
 
@@ -42,12 +52,28 @@ from sem_tpu_torch import operators as ops
 from sem_tpu_torch.coupling.components import (ConvectionDiffusionComponent,
                                                NavierStokesComponent)
 from sem_tpu_torch.interp import apply_transfer
+from sem_tpu_torch.krylov import _givens_update_device, fgmres
 from sem_tpu_torch.parallel.distributed import assert_replicated
 from sem_tpu_torch.parallel.sharding import active_group
 from sem_tpu_torch.ptc import SERController
 from sem_tpu_torch.utils.checkpoint import save_checkpoint
 
 __all__ = ["BoussinesqMDA", "MDAStats", "CoupledState"]
+
+#: outer iterations in one on-device JNK window (``device_krylov=True``):
+#: the reference's default ``SEM_TPU_FUSED_WINDOW``; windows are
+#: warm-started, so the size bounds a window without changing convergence
+FUSED_WINDOW = 10
+#: largest coupled DOF at which PTC takes the device windows: the
+#: reference's default ``SEM_TPU_PTC_DEVICE_MAX_DOF``
+PTC_DEVICE_MAX_DOF = 150_000
+#: chunk tolerance of the fused preconditioner's rounds, relative to the
+#: pass's preconditioned residual (``refined_gmres_host``'s ``inner_rtol``)
+_PC_RTOL = 1e-5
+#: chunk tolerance of a round whose discipline tolerance is already met:
+#: above every f32 residual, so that the chunk ends before its first
+#: iteration
+_PC_BIG = 3e38
 
 
 @dataclasses.dataclass
@@ -93,7 +119,7 @@ def _forecast_doomed(hist, atol, remaining, slack=1.5):
 
 
 def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
-            basis_dtype=torch.float32, forecast=False):
+            basis_dtype=torch.float32, fused=None, forecast=False):
     """Host-orchestrated flexible GMRES with device-resident vectors.
 
     Control flow, the Hessenberg recurrence and the Givens rotations run on
@@ -108,9 +134,33 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
     < 2% and whose update left the true residual essentially unchanged);
     ``forecast`` (see :func:`_forecast_doomed`); the iteration budget.
 
+    :param fused: optional ``(start, step, precon_split)`` triple
+        (:meth:`BoussinesqMDA._fg_fused`) that replaces the per-iteration
+        glue with one fused step and one scalar read per iteration:
+
+        * ``start(x, b) -> (V, Z, H, cs, sn, g, *v_pieces, beta)``: the
+          window's residual, its norm, the zeroed f32 bases (``V``'s row 0
+          the normalized residual), the f64 Hessenberg, rotations and
+          ``g = β e₀``, and the lp-rounded row 0 split into the four fields
+          (what the preconditioner sees);
+        * ``step(V, Z, H, cs, sn, g, k, *z_pieces) -> (V, Z, H, cs, sn, g,
+          *v_pieces, res)``: the coupled matvec of ``z``, its write into
+          ``Z``, f32 CGS2 against ``V`` and the Givens update on the
+          device;
+        * ``precon_split(*v_pieces) -> z_pieces``: the block preconditioner
+          on split fields.
+
+        ``matvec``/``precon``/``basis_dtype`` are ignored then.  ``H`` and
+        ``g`` are read back once per window, for the triangular solve.
+    :param forecast: the convergence-forecast exit: once ≥ 60 iterations
+        are in and even the best recent contraction rate cannot reach
+        ``atol`` within 1.5× the remaining budget, finish the window and
+        return the partial iterate with ``ok=False``
     :return: ``(x, iterations, ok)``
     """
     lp = basis_dtype
+    if fused is not None:
+        f_start, f_step, f_precon = fused
     x = torch.zeros_like(b)
     it = 0
     normb = float(torch.linalg.vector_norm(b))
@@ -118,15 +168,28 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
         return x, 0, True
     m = restart
     n = b.shape[0]
-    V = torch.empty((m + 1, n), dtype=lp, device=b.device)
-    Z = torch.empty((m, n), dtype=lp, device=b.device)
+    if fused is None:
+        V = torch.empty((m + 1, n), dtype=lp, device=b.device)
+        Z = torch.empty((m, n), dtype=lp, device=b.device)
     beta_prev = None    # true residual at the previous restart
     stalled_in = False  # last window ended on the in-window plateau test
     hist = []           # estimated residual per iteration (forecast exit)
     doomed = False
     while it < maxiter:
-        r = b - matvec(x)
-        beta = float(torch.linalg.vector_norm(r))
+        if fused is not None:
+            out = f_start(x, b)
+            V, Z, Hd, csd, snd, gd = out[:6]
+            if V.shape[0] != m + 1:
+                raise ValueError(
+                    f"fused FGMRES programs were built for restart="
+                    f"{V.shape[0] - 1}, called with restart={m} (a window "
+                    f"mismatch would silently clamp the padded-buffer "
+                    f"updates)")
+            vp = out[6:-1]
+            beta = float(out[-1])   # the window's one read
+        else:
+            r = b - matvec(x)
+            beta = float(torch.linalg.vector_norm(r))
         if not np.isfinite(beta):
             return x, it, False     # inner solve diverged/NaN — fail fast
         if beta <= atol:
@@ -135,42 +198,49 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
             return x, it, False
         beta_prev = beta
         stalled_in = False
-        V[0] = r / beta
-        H = np.zeros((m + 1, m))
-        g = np.zeros(m + 1)
-        g[0] = beta
-        cs = np.zeros(m)
-        sn = np.zeros(m)
+        if fused is None:
+            V[0] = r / beta
+            H = np.zeros((m + 1, m))
+            g = np.zeros(m + 1)
+            g[0] = beta
+            cs = np.zeros(m)
+            sn = np.zeros(m)
         resw = np.zeros(m)  # per-iteration residual estimates (plateau test)
         k_used = 0
         res = beta
         for k in range(m):
-            z = precon(V[k].to(b.dtype))
-            w = matvec(z)
-            Z[k] = z
-            # CGS2 against the live rows 0..k
-            Vk = V[:k + 1]
-            wl = w.to(lp)
-            h1 = Vk @ wl
-            wl = wl - Vk.T @ h1
-            h2 = Vk @ wl
-            wl = wl - Vk.T @ h2
-            nw = torch.linalg.vector_norm(wl)
-            hfull = torch.cat([h1 + h2, nw[None]]).tolist()
-            V[k + 1] = wl / hfull[-1] if hfull[-1] > 0.0 else 0.0
-            H[:k + 2, k] = hfull
-            for j in range(k):
-                t1 = cs[j] * H[j, k] + sn[j] * H[j + 1, k]
-                t2 = -sn[j] * H[j, k] + cs[j] * H[j + 1, k]
-                H[j, k], H[j + 1, k] = t1, t2
-            d = np.hypot(H[k, k], H[k + 1, k])
-            cs[k], sn[k] = ((H[k, k] / d, H[k + 1, k] / d) if d > 0
-                            else (1, 0))
-            H[k, k] = d
-            H[k + 1, k] = 0.0
-            g[k + 1] = -sn[k] * g[k]
-            g[k] = cs[k] * g[k]
-            res = abs(g[k + 1])
+            if fused is not None:
+                out = f_step(V, Z, Hd, csd, snd, gd, k, *f_precon(*vp))
+                V, Z, Hd, csd, snd, gd = out[:6]
+                vp = out[6:-1]
+                res = float(out[-1])    # the iteration's one read
+            else:
+                z = precon(V[k].to(b.dtype))
+                w = matvec(z)
+                Z[k] = z
+                # CGS2 against the live rows 0..k
+                Vk = V[:k + 1]
+                wl = w.to(lp)
+                h1 = Vk @ wl
+                wl = wl - Vk.T @ h1
+                h2 = Vk @ wl
+                wl = wl - Vk.T @ h2
+                nw = torch.linalg.vector_norm(wl)
+                hfull = torch.cat([h1 + h2, nw[None]]).tolist()
+                V[k + 1] = wl / hfull[-1] if hfull[-1] > 0.0 else 0.0
+                H[:k + 2, k] = hfull
+                for j in range(k):
+                    t1 = cs[j] * H[j, k] + sn[j] * H[j + 1, k]
+                    t2 = -sn[j] * H[j, k] + cs[j] * H[j + 1, k]
+                    H[j, k], H[j + 1, k] = t1, t2
+                d = np.hypot(H[k, k], H[k + 1, k])
+                cs[k], sn[k] = ((H[k, k] / d, H[k + 1, k] / d) if d > 0
+                                else (1, 0))
+                H[k, k] = d
+                H[k + 1, k] = 0.0
+                g[k + 1] = -sn[k] * g[k]
+                g[k] = cs[k] * g[k]
+                res = abs(g[k + 1])
             it += 1
             k_used = k + 1
             if callback is not None:
@@ -188,6 +258,10 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
                 break
         if res > atol and res > 0.98 * beta:
             stalled_in = True
+        if fused is not None:
+            # the rotated H and g live on the device: one read per window
+            hg = torch.cat([Hd.reshape(-1), gd]).cpu().numpy()
+            H, g = hg[:-(m + 1)].reshape(m + 1, m), hg[-(m + 1):]
         # Arnoldi breakdown guard: solve only the leading nonsingular block
         diag = np.abs(np.diag(H[:k_used, :k_used]))
         tol_d = max(1e-14 * diag.max(initial=0.0), 1e-300)
@@ -197,13 +271,101 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
             if k_used == 0:
                 return x, it, False
         y = np.linalg.solve(np.triu(H[:k_used, :k_used]), g[:k_used])
-        x = x + (Z[:k_used].T @ torch.as_tensor(y, dtype=lp,
+        x = x + (Z[:k_used].T @ torch.as_tensor(y, dtype=Z.dtype,
                                                 device=b.device)).to(x.dtype)
         if abs(g[k_used]) <= atol:
             return x, it, True
         if doomed:
             return x, it, False
     return x, it, False
+
+
+def _two_rounds(mv64, pc_lp, chunk, b, mtol):
+    """Best-effort mixed-precision solve of ``A x = b`` by the fixed
+    two-round policy of the reference's fused preconditioner: twice a f64
+    refinement pass (``r = b − A x``, ``rp = pc_lp(r)``) followed by one
+    bounded f32 chunk to ``1e-5·‖rp‖``.  Once a pass's true residual meets
+    the tolerance ``max(mtol·√n, max(mtol, 50ε)·‖b‖)``, the chunks that
+    follow get a tolerance above every f32 residual and end before their
+    first iteration.  That decision stays a device tensor: the chunk reads
+    it together with its first residual norm, so the policy adds no host
+    read to the chunks' own (one per GMRES iteration).
+
+    :param mv64, pc_lp, chunk: a solver's ``_refinement_parts``
+    :return: ``(x, f32 iterations)``
+    """
+    eps = float(torch.finfo(b.dtype).eps)
+    norm = torch.linalg.vector_norm
+    atol = torch.clamp_min(max(mtol, 50 * eps) * norm(b),
+                           mtol * np.sqrt(b.shape[0]))
+    zlp = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+    x, xin = torch.zeros_like(b), zlp
+    done = torch.zeros((), dtype=torch.bool, device=b.device)
+    its = 0
+    for _ in range(2):
+        x = x + xin.to(x.dtype)
+        r = b - mv64(x)
+        rp = pc_lp(r.to(torch.float32))
+        done = done | (norm(r) <= atol)
+        xin, info = chunk(rp, zlp, torch.where(done, _PC_BIG,
+                                               _PC_RTOL * norm(rp)))[:2]
+        its += info.iterations
+    return x + xin.to(x.dtype), its
+
+
+class _CapturedFG:
+    """The fused host-FGMRES programs as two CUDA graphs, captured once
+    per MDA: ``start`` and ``step`` of :meth:`BoussinesqMDA._build_fg_fused`
+    on static buffers.  :meth:`bind` copies a linearization (σ included, as
+    a 0-d tensor) into the buffers the graphs read; a call copies its
+    arguments in, replays and returns the graph's own output tensors (one
+    set per graph, overwritten by the next replay).  Everything cached on
+    first use (cuBLAS handles, the transfer matrices and grid constants) is
+    made by one eager warm-up on a side stream before the capture; a
+    capture that fails raises."""
+
+    def __init__(self, start, step, lin, n, sizes):
+        dev = lin[0].device
+        f64 = torch.float64
+        self.x = torch.zeros(n, dtype=f64, device=dev)
+        self.b = torch.zeros(n, dtype=f64, device=dev)
+        self.k = torch.zeros((), dtype=torch.int64, device=dev)
+        self.z = tuple(torch.zeros(s, dtype=f64, device=dev) for s in sizes)
+        self.lin = tuple(torch.empty_like(t) for t in lin)
+        self.bind(lin)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = start(self.x, self.b, *self.lin)
+            step(*warm[:6], self.k, *self.z, *self.lin)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.g_start = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.g_start):
+            self.start_out = start(self.x, self.b, *self.lin)
+        self.g_step = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.g_step):
+            self.step_out = step(*self.start_out[:6], self.k, *self.z,
+                                 *self.lin)
+
+    def bind(self, lin):
+        for dst, src in zip(self.lin, lin):
+            dst.copy_(src)
+
+    def start(self, x, b):
+        self.x.copy_(x)
+        self.b.copy_(b)
+        self.g_start.replay()
+        return self.start_out
+
+    def step(self, V, Z, H, cs, sn, g, k, *z):
+        if V is not self.start_out[0]:
+            raise ValueError("the captured fused step runs on the state of "
+                             "the captured start only")
+        self.k.fill_(k)
+        for dst, src in zip(self.z, z):
+            dst.copy_(src)
+        self.g_step.replay()
+        return self.step_out
 
 
 class BoussinesqMDA:
@@ -226,8 +388,17 @@ class BoussinesqMDA:
     :param iprint: True ⇒ per-iteration residual lines
     :param forcing: inexact-Newton forcing factor η of the coupled JNK GMRES
         (atol = max(mtol_gmres·√DOF, η·‖F‖)); None = fixed tolerance
-    :param device_krylov: only ``None``/``False`` (the host-orchestrated
-        FGMRES) is ported
+    :param device_krylov: ``True``: the JNK linear solves (and PTC's, up
+        to :data:`PTC_DEVICE_MAX_DOF` coupled DOF) run as warm-started
+        windows of :func:`sem_tpu_torch.krylov.fgmres` with float64 nested
+        discipline solves (:meth:`_fgmres_device`); ``None`` (default) and
+        ``False``: the host FGMRES.  Unlike the reference, ``None`` never
+        picks the windows by problem size
+    :param fused: the host FGMRES takes the fused programs of
+        :meth:`_fg_fused` (one fused step and one scalar read per iteration,
+        CUDA graphs on a CUDA device) and the fixed two-round preconditioner
+        of :meth:`_build_pc_fused`: the reference's default
+        (``SEM_TPU_FG_FUSED=1``, ``SEM_TPU_FUSED_PC=1``)
     :param ptc_dt0/ptc_growth/ptc_dt_max: initial pseudo-time step, SER
         growth cap per step and Δt ceiling (PTC)
     :param ptc_forcing: forcing factor of the PTC steps' coupled GMRES
@@ -264,14 +435,16 @@ class BoussinesqMDA:
                  ptc_dt_max: float = 1e12, ptc_forcing: float = 1e-2,
                  precon: str = None, checkpoint_path: str = None,
                  checkpoint_every: int = 5, checkpoint_config: dict = None,
-                 time_budget_s: float = None, time_deadline: float = None):
+                 time_budget_s: float = None, time_deadline: float = None,
+                 fused: bool = False):
         if mode not in ("GS", "NJ", "JNK", "PTC"):
             raise ValueError("Unknown method")
-        if device_krylov:
+        group = active_group()
+        if (device_krylov or fused) and group is not None and group.world > 1:
             raise NotImplementedError(
-                "device_krylov=True (the fused on-device FGMRES) is not "
-                "ported to sem_tpu_torch (ROADMAP deferred item 5); the "
-                "host FGMRES runs instead when it is None or False")
+                "device_krylov=True and fused=True are not decomposed over a "
+                "process group in sem_tpu_torch yet (ROADMAP deferred item "
+                "6); run_parallel takes the host FGMRES")
         if precon is None:
             precon = "bgs" if mode == "PTC" else "bj"
         if precon not in ("bj", "bgs", "bgs2"):
@@ -299,6 +472,9 @@ class BoussinesqMDA:
         self.ptc_dt_max = float(ptc_dt_max)
         self.ptc_forcing = float(ptc_forcing)
         self.iprint = iprint
+        self.device_krylov = bool(device_krylov)
+        self.fused = bool(fused)
+        self._fg_graphs = None   # _CapturedFG, made on the first CUDA bind
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = int(checkpoint_every)
         self.checkpoint_config = checkpoint_config or {}
@@ -345,7 +521,12 @@ class BoussinesqMDA:
         Gauss-Seidel variants (class docstring).  ``best_effort``
         (preconditioner applications): block solves return their best
         iterate instead of escalating or raising."""
-        rT, ru, rv, rp = self._unpack(r)
+        return self._pack(*self._block_jacobi_split(
+            *self._unpack(r), mtol=mtol, best_effort=best_effort))
+
+    def _block_jacobi_split(self, rT, ru, rv, rp, mtol=None,
+                            best_effort=False):
+        """:meth:`_block_jacobi` on split fields: ``(dT, du, dv, dp)``."""
         dT = self.cd_comp.solve_linear(rT, mtol=mtol,
                                        best_effort=best_effort)
         if self.precon_type in ("bgs", "bgs2"):
@@ -358,7 +539,7 @@ class BoussinesqMDA:
             corr = self.cd_comp.apply_linear(torch.zeros_like(rT), du, dv)
             dT = self.cd_comp.solve_linear(rT - corr, mtol=mtol,
                                            best_effort=best_effort)
-        return self._pack(dT, du, dv, dp)
+        return dT, du, dv, dp
 
     def _bgs_rhs(self, dT, rv):
         """Block-Gauss-Seidel coupling RHS: forward the buoyancy block
@@ -413,6 +594,293 @@ class BoussinesqMDA:
                 f"Boussinesq {self.mode}: wall-clock budget exhausted "
                 f"after {k} iterations at residual {norm:.3e} (target "
                 f"{self.atol_nonlin:.3e}){where}")
+
+    # ------------- fused host FGMRES and on-device windows ------------- #
+    def _build_fg_fused(self):
+        """The fused programs of the host FGMRES (see :func:`_fgmres`
+        ``fused``) as eager functions of explicit tensors: ``start(x, b,
+        *lin)`` and ``step(V, Z, H, cs, sn, g, k, zT, zu, zv, zp, *lin)``,
+        ``lin = (cd_u, cd_v, cd_jdu, cd_jdv, ns_ul, ns_vl, jxx, jxy, jyx,
+        jyy, cd_sigma)`` the linearization (σ a 0-d f64 tensor).  ``step``
+        updates the bases, ``H``, the rotations and ``g`` in place: the
+        coupled f64 matvec, the flexible-basis write, f32 CGS2 (TF32 is
+        off) and the Givens update with
+        :func:`sem_tpu_torch.krylov._givens_update_device`.  Nothing is read
+        back inside either, so a CUDA graph captures each
+        (:class:`_CapturedFG`, ``k`` a 0-d tensor); on the CPU they run as
+        they are (``k`` an int)."""
+        cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
+        Ncd, Nns = self.N_cd, self.N_ns
+        m = self.restart
+        lp, hdt = torch.float32, torch.float64
+
+        def split(v):
+            return (v[:Ncd], v[Ncd:Ncd + Nns], v[Ncd + Nns:Ncd + 2 * Nns],
+                    v[Ncd + 2 * Nns:])
+
+        def mv(zT, zu, zv, zp, cd_u, cd_v, cd_jdu, cd_jdv, ns_ul, ns_vl,
+               jxx, jxy, jyx, jyy, cd_sigma):
+            du_cd = apply_transfer(ns_s.grid, cd_s.grid, zu)
+            dv_cd = apply_transfer(ns_s.grid, cd_s.grid, zv)
+            dT_ns = apply_transfer(cd_s.grid, ns_s.grid, zT)
+            drT = cd_s._tangent(zT, cd_u, cd_v, cd_jdu, cd_jdv, du_cd, dv_cd,
+                                cd_sigma)
+            dru, drv, drp = ns_s._tangent(zu, zv, zp, dT_ns, ns_ul, ns_vl,
+                                          (jxx, jxy, jyx, jyy))
+            return torch.cat([drT, dru, drv, drp])
+
+        def start(x, b, *lin):
+            r = b - mv(*split(x), *lin)
+            beta = torch.linalg.vector_norm(r)
+            # the preconditioner sees the lp-rounded basis row, as on the
+            # un-fused path
+            v0 = torch.where(beta > 0.0, r / torch.clamp_min(beta, 1e-300),
+                             0.0).to(lp)
+            n, dev = b.shape[0], b.device
+            V = torch.zeros((m + 1, n), dtype=lp, device=dev)
+            V[0] = v0
+            Z = torch.zeros((m, n), dtype=lp, device=dev)
+            H = torch.zeros((m + 1, m), dtype=hdt, device=dev)
+            cs = torch.ones(m, dtype=hdt, device=dev)   # identity slots
+            sn = torch.zeros(m, dtype=hdt, device=dev)
+            g = torch.zeros(m + 1, dtype=hdt, device=dev)
+            g[0] = beta
+            return (V, Z, H, cs, sn, g) + split(v0.to(b.dtype)) + (beta,)
+
+        def step(V, Z, H, cs, sn, g, k, zT, zu, zv, zp, *lin):
+            kt = torch.as_tensor(k, device=V.device)
+            w = mv(zT, zu, zv, zp, *lin)
+            Z.index_copy_(0, kt.reshape(1),
+                          torch.cat([zT, zu, zv, zp]).to(lp)[None])
+            # CGS2: a Python int k (the eager twin as the host loop calls
+            # it) projects on the live rows 0..k, the un-fused loop's bits;
+            # a tensor k (the captured graph, whose shapes cannot follow k)
+            # on the whole zero-padded V, whose rows past k add nothing
+            Vk = V[:k + 1] if isinstance(k, int) else V
+            wl = w.to(lp)
+            h1 = Vk @ wl
+            wl = wl - Vk.T @ h1
+            h2 = Vk @ wl
+            wl = wl - Vk.T @ h2
+            nw = torch.linalg.vector_norm(wl)
+            vk1 = torch.where(nw > 1e-30, wl / torch.clamp_min(nw, 1e-30),
+                              0.0)
+            V.index_copy_(0, (kt + 1).reshape(1), vk1[None])
+            # the Hessenberg column: projections 0..k (zero past k), the
+            # subdiagonal ‖w‖ at k+1; rotations in f64
+            h = torch.zeros(m + 1, dtype=hdt, device=V.device)
+            h[:Vk.shape[0]] = h1 + h2
+            hcol = torch.where(torch.arange(m + 1, device=V.device) == kt + 1,
+                               nw.to(hdt), h)
+            hrot, cs_, sn_, g_, res = _givens_update_device(hcol, cs, sn, g,
+                                                            kt, m)
+            H.index_copy_(1, kt.reshape(1), hrot[:, None])
+            cs.copy_(cs_)
+            sn.copy_(sn_)
+            g.copy_(g_)
+            return (V, Z, H, cs, sn, g) + split(vk1.to(zT.dtype)) + (res,)
+
+        return start, step
+
+    def _fg_fused(self, mtol=None, best_effort=True):
+        """Bind the fused host-FGMRES programs to the current linearization:
+        the ``(start, step, precon_split)`` triple of :func:`_fgmres`.  On a
+        CUDA device ``start`` and ``step`` replay the graphs of
+        :class:`_CapturedFG` (captured on the first call, the linearization
+        copied into them on every call); elsewhere they run eagerly.
+        ``precon_split`` is the fused preconditioner (:meth:`_pc_fused`)
+        where it applies and ``best_effort``, else
+        :meth:`_block_jacobi_split`."""
+        cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
+        lin = (cd_s._u, cd_s._v, cd_s._jac_diag_u, cd_s._jac_diag_v,
+               ns_s._u_lin, ns_s._v_lin, *ns_s._jac,
+               torch.tensor(cd_s._sigma, dtype=torch.float64,
+                            device=self.device))
+        if self.device.type == "cuda":
+            if self._fg_graphs is None:
+                self._fg_graphs = _CapturedFG(
+                    *self._build_fg_fused(), lin, self.DOF,
+                    (self.N_cd,) + (self.N_ns,) * 3)
+            else:
+                self._fg_graphs.bind(lin)
+            start, step = self._fg_graphs.start, self._fg_graphs.step
+        else:
+            startf, stepf = self._build_fg_fused()
+
+            def start(x, b):
+                return startf(x, b, *lin)
+
+            def step(*a):
+                return stepf(*a, *lin)
+
+        precon_split = self._pc_fused(mtol=mtol) if best_effort else None
+        if precon_split is None:
+            def precon_split(rT, ru, rv, rp):
+                return self._block_jacobi_split(rT, ru, rv, rp, mtol=mtol,
+                                                best_effort=best_effort)
+
+        return start, step, precon_split
+
+    def _build_pc_fused(self, k_inner: int):
+        """The fused block-Jacobi/BGS preconditioner at the current
+        linearization: ``pc_apply(rT, ru, rv, rp, mtol_cd, mtol_ns) -> (dT,
+        du, dv, dp, its_cd, its_ns)``.
+
+        For preconditioner applications the reference replaces the adaptive
+        refinement loop (plateau detection, learned floors, escalation) by a
+        fixed policy, since a flexible outer FGMRES tolerates any inexact
+        application: per discipline, two rounds of (f64 refinement pass → one
+        bounded f32 chunk), :func:`_two_rounds`, on the chunks of the
+        solvers' ``_refinement_parts`` (CD: kernel B1; NS: kernel B2, the
+        plain left-preconditioned chunks for ``k_inner = 0``, the row-scaled
+        flexible ones with ``k_inner`` inner velocity steps otherwise).
+        ``'bgs'`` forwards the buoyancy block into the NS right-hand side,
+        ``'bgs2'`` then solves the CD block again.  The chunks' GMRES stays
+        host-driven (one read per iteration); the policy adds no read."""
+        cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
+        Nns = self.N_ns
+        cd_parts = cd_s._refinement_parts()
+        ns_parts = ns_s._refinement_parts(k_inner)
+
+        def pc_apply(rT, ru, rv, rp, mtol_cd, mtol_ns):
+            dT, its_cd = _two_rounds(*cd_parts, rT, mtol_cd)
+            if self.precon_type in ("bgs", "bgs2"):
+                rv = self._bgs_rhs(dT, rv)
+            xn, its_ns = _two_rounds(*ns_parts, torch.cat([ru, rv, rp]),
+                                     mtol_ns)
+            du, dv, dp = xn[:Nns], xn[Nns:2 * Nns], xn[2 * Nns:]
+            if self.precon_type == "bgs2":
+                corr = self.cd_comp.apply_linear(torch.zeros_like(rT), du, dv)
+                dT, its2 = _two_rounds(*cd_parts, rT - corr, mtol_cd)
+                its_cd += its2
+            return dT, du, dv, dp, its_cd, its_ns
+
+        return pc_apply
+
+    def _pc_fused(self, mtol=None):
+        """Bind the fused preconditioner (:meth:`_build_pc_fused`) to the
+        current linearization as ``precon_split(rT, ru, rv, rp)``, or None
+        where it does not apply: an NS linear solver other than
+        ``'coupled'``, or either solver not mixed precision.  Each
+        application counts one linear solve of each discipline."""
+        cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
+        if (ns_s._linear_solver != "coupled" or not ns_s._mixed_precision
+                or not cd_s._mixed_precision):
+            return None
+        pc_apply = self._build_pc_fused(ns_s._velo_inner)
+        mtol_cd = cd_s._mtol if mtol is None else mtol
+        mtol_ns = ns_s._mtol if mtol is None else mtol
+
+        def precon_split(rT, ru, rv, rp):
+            out = pc_apply(rT, ru, rv, rp, mtol_cd, mtol_ns)
+            self.cd_comp.iter_count_solve += 1
+            self.ns_comp.iter_count_solve += 1
+            return out[:4]
+
+        return precon_split
+
+    def _window_precon(self):
+        """The preconditioner of the device windows at the current
+        linearization: the disciplines' float64 solves from zero at
+        ``mtol_precon`` (the CD ``_update_f64``, the ``'bgs'`` buoyancy
+        right-hand side, the NS ``_update_coupled_f64`` or, under
+        ``'uzawa'``, ``_update_uzawa``, and the ``'bgs2'`` CD re-solve), as
+        the reference's on-device window nests them.  Float64 throughout:
+        it launches no kernel."""
+        cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
+        Nns = self.N_ns
+        mtol_cd = cd_s._mtol if self.mtol_precon is None else self.mtol_precon
+        mtol_ns = ns_s._mtol if self.mtol_precon is None else self.mtol_precon
+        f64 = torch.float64
+        zcd = torch.zeros(self.N_cd, dtype=f64, device=self.device)
+        zns = torch.zeros(Nns, dtype=f64, device=self.device)
+
+        def pc(r):
+            rT, ru, rv, rp = self._unpack(r)
+            dT = cd_s._update_f64(rT, zcd, mtol_cd, cd_s._sigma)[0]
+            if self.precon_type in ("bgs", "bgs2"):
+                rv = self._bgs_rhs(dT, rv)
+            if ns_s._linear_solver == "uzawa":
+                du, dv, dp = ns_s._update_uzawa(ru, rv, rp, zns, mtol_ns)[:3]
+            else:
+                q = ns_s._update_coupled_f64(torch.cat([ru, rv, rp]), zns,
+                                             mtol_ns)[0]
+                du, dv, dp = q[:Nns], q[Nns:2 * Nns], q[2 * Nns:]
+            if self.precon_type == "bgs2":
+                corr = self.cd_comp.apply_linear(torch.zeros_like(rT), du, dv)
+                dT = cd_s._update_f64(rT - corr, zcd, mtol_cd,
+                                      cd_s._sigma)[0]
+            return torch.cat([dT, du, dv, dp])
+
+        return pc
+
+    def _jnk_window(self, x, b, atol, window, precon):
+        """One device window: ``window`` iterations of
+        :func:`sem_tpu_torch.krylov.fgmres` on the coupled tangent system
+        from ``x`` (the counterpart of the reference's ``_build_jnk_cycle``
+        program).  Returns ``(x, KrylovInfo, hist)``."""
+        return fgmres(self._apply_linear, b, x0=x, atol=atol,
+                      restart=self.restart, maxiter=window, precon=precon,
+                      return_hist=True)
+
+    def _fgmres_device(self, b, atol=None, maxiter=None):
+        """Drive windows of :func:`sem_tpu_torch.krylov.fgmres` on the
+        coupled tangent system until converged, each ``min(restart,
+        FUSED_WINDOW)`` iterations long and warm-started at the last
+        iterate, preconditioned by :meth:`_window_precon`.
+
+        The reference compiles each window, nested discipline solves
+        included, into one XLA program (one dispatch per window).  The
+        nested solves here stop on their data (a host read per inner
+        iteration), so a window is no single graph: the algorithm is the
+        reference's, the dispatch is per operation.
+
+        Exits: converged; stalled or an empty window (accepted: the Newton
+        loop's test on the true residual decides); two flat windows in a
+        row (< 2 % each); the iteration cap.
+
+        :param maxiter: per-call iteration cap overriding ``gmres_maxiter``
+        :return: ``(x, iterations, ok, resnorm)``, ``resnorm`` the last
+            window's true residual
+        """
+        atol = self.atol_gmres if atol is None else atol
+        cap = self.gmres_maxiter if maxiter is None else maxiter
+        window = min(self.restart, FUSED_WINDOW)
+        pc = self._window_precon()
+        x = torch.zeros_like(b)
+        total = 0
+        prev_res = None
+        flat_windows = 0
+        while True:
+            x, info, hist = self._jnk_window(x, b, atol, window, pc)
+            done = info.iterations
+            if self.iprint:
+                for j, h in enumerate(hist[:done].tolist()):
+                    print(f"   JNK GMRES: {total + j + 1}\t{h}")
+            total += done
+            # block preconditioner applications = discipline solves
+            self.cd_comp.iter_count_solve += done
+            self.ns_comp.iter_count_solve += done
+            res = info.resnorm
+            if info.converged:
+                return x, total, True, res
+            if info.stalled or done == 0:
+                if self.iprint:
+                    print(f"   JNK GMRES: stalled at resnorm {res:.3e} "
+                          f"(roundoff plateau)")
+                return x, total, True, res
+            if prev_res is not None and res > 0.98 * prev_res:
+                flat_windows += 1
+                if flat_windows >= 2:
+                    if self.iprint:
+                        print(f"   JNK GMRES: stalled at resnorm {res:.3e} "
+                              f"(cross-window plateau)")
+                    return x, total, True, res
+            else:
+                flat_windows = 0
+            prev_res = res
+            if total >= cap:
+                return x, total, False, res
 
     # --------------------------- modes --------------------------- #
     @torch.no_grad()
@@ -485,15 +953,20 @@ class BoussinesqMDA:
                 atol_k = self.atol_gmres
                 if self.forcing is not None:
                     atol_k = max(atol_k, self.forcing * norm)
-                dx, iters, ok = _fgmres(
-                    self._apply_linear,
-                    lambda r: self._block_jacobi(r, mtol=self.mtol_precon,
-                                                 best_effort=True),
-                    -F, atol=atol_k, restart=self.restart,
-                    maxiter=self.gmres_maxiter,
-                    callback=(lambda it, res: print(
-                        f"   JNK GMRES: {it}\t{res}")) if self.iprint
-                    else None)
+                if self.device_krylov:
+                    dx, iters, ok, _ = self._fgmres_device(-F, atol=atol_k)
+                else:
+                    dx, iters, ok = _fgmres(
+                        self._apply_linear,
+                        lambda r: self._block_jacobi(
+                            r, mtol=self.mtol_precon, best_effort=True),
+                        -F, atol=atol_k, restart=self.restart,
+                        maxiter=self.gmres_maxiter,
+                        callback=(lambda it, res: print(
+                            f"   JNK GMRES: {it}\t{res}")) if self.iprint
+                        else None,
+                        fused=(self._fg_fused(mtol=self.mtol_precon)
+                               if self.fused else None))
                 self.stats.gmres_iters += iters
                 if not ok:
                     raise RuntimeError(
@@ -559,18 +1032,30 @@ class BoussinesqMDA:
             # Δt) returns a partial step instead of grinding; the smaller
             # contraction feeds back through SER, so Δt equilibrates against
             # what the coupled solver can crack cheaply
-            dx, iters, _ = _fgmres(
-                self._apply_linear,
-                lambda r: self._block_jacobi(r, mtol=self.mtol_precon,
-                                             best_effort=True),
-                -F, atol=atol_k, restart=self.restart,
-                maxiter=min(self.gmres_maxiter, 12 * self.restart),
-                callback=(lambda it, res: print(
-                    f"   PTC GMRES: {it}\t{res}")) if self.iprint else None,
-                forecast=True)
+            step_maxiter = min(self.gmres_maxiter, 12 * self.restart)
+            if self.device_krylov and self.DOF <= PTC_DEVICE_MAX_DOF:
+                dx, iters, _, lin_res = self._fgmres_device(
+                    -F, atol=atol_k, maxiter=step_maxiter)
+            else:
+                fused = (self._fg_fused(mtol=self.mtol_precon) if self.fused
+                         else None)
+                dx, iters, _ = _fgmres(
+                    self._apply_linear,
+                    lambda r: self._block_jacobi(r, mtol=self.mtol_precon,
+                                                 best_effort=True),
+                    -F, atol=atol_k, restart=self.restart,
+                    maxiter=step_maxiter,
+                    callback=(lambda it, res: print(
+                        f"   PTC GMRES: {it}\t{res}")) if self.iprint
+                    else None,
+                    fused=fused, forecast=True)
+                if fused is not None:
+                    # the fused window start computes exactly ‖b − A·x‖
+                    lin_res = float(fused[0](dx, -F)[-1])
+                else:
+                    lin_res = float(torch.linalg.vector_norm(
+                        -F - self._apply_linear(dx)))
             self.stats.gmres_iters += iters
-            lin_res = float(torch.linalg.vector_norm(
-                -F - self._apply_linear(dx)))
             lin_failed = lin_res > 10 * atol_k
             s_new, F_new, norm_new = self._try_step(s, dx, 1.0)
             if not np.isfinite(norm_new) or norm_new > 1e3 * max(norm, 1.0):

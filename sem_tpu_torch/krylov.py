@@ -154,6 +154,51 @@ def _givens(h, cs, sn, g, k):
     return abs(g[k + 1])
 
 
+def _givens_update_device(h, cs, sn, g, k, m, eps_tiny=1e-300):
+    """:func:`_givens` on device tensors, with nothing read back: apply the
+    stored rotations to the new column ``h`` (length ``m+1``), form the
+    rotation zeroing ``h[k+1]``, update ``g``.  ``k`` is a 0-d int64 tensor.
+
+    Counterpart of ``sem_tpu.krylov._givens_update``: unused rotation slots
+    hold the identity (``cs=1``, ``sn=0``), so all ``m`` slots are applied in
+    order and no masking on ``k`` is needed; the first-order recurrence
+    ``α_{j+1} = -s_j α_j + c_j h_{j+1}`` runs as a loop over the slots where
+    the reference uses an associative scan.
+
+    :return: ``(h, cs, sn, g, res)``, ``res = |g[k+1]|`` a 0-d tensor
+    """
+    alpha = h[0]
+    rot = []
+    for j in range(m):
+        rot.append(cs[j] * alpha + sn[j] * h[j + 1])
+        alpha = -sn[j] * alpha + cs[j] * h[j + 1]
+    h = torch.stack(rot + [alpha])
+    slot = torch.arange(m + 1, device=h.device)
+    at_k, at_k1 = slot == k, slot == k + 1
+    hk, hk1 = (h.index_select(0, i.reshape(1))[0] for i in (k, k + 1))
+    denom = torch.sqrt(hk * hk + hk1 * hk1)
+    big = denom > eps_tiny
+    safe = torch.clamp_min(denom, eps_tiny)
+    c = torch.where(big, hk / safe, 1.0)
+    s = torch.where(big, hk1 / safe, 0.0)
+    cs = torch.where(at_k[:m], c, cs)
+    sn = torch.where(at_k[:m], s, sn)
+    h = torch.where(at_k, denom, torch.where(at_k1, 0.0, h))
+    gk = g.index_select(0, k.reshape(1))[0]
+    g = torch.where(at_k, c * gk, torch.where(at_k1, -s * gk, g))
+    return h, cs, sn, g, (s * gk).abs()
+
+
+def _read_first(rnorm, atol):
+    """The first host read of a solve: ``(β, atol)`` as floats.  A 0-d
+    tensor ``atol`` (a tolerance decided on the device) rides β's read, so
+    it costs no read of its own."""
+    if isinstance(atol, torch.Tensor):
+        beta, atol = torch.stack([rnorm, atol.to(rnorm.dtype)]).tolist()
+        return beta, atol
+    return float(rnorm), float(atol)
+
+
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, *, atol: float,
           restart: int = 30, maxiter: int = 1000,
@@ -169,7 +214,9 @@ def gmres(matvec: Callable, b: torch.Tensor,
     :param matvec: linear operator ``A(x)``
     :param b: right-hand side (flat tensor; its dtype is the working dtype)
     :param x0: initial guess (zeros if None)
-    :param atol: absolute tolerance on ‖b − A x‖₂
+    :param atol: absolute tolerance on ‖b − A x‖₂: a float, or a 0-d
+        tensor on ``b``'s device, read with the first residual norm (a
+        tolerance decided on the device costs no read of its own)
     :param restart: Krylov window m
     :param maxiter: max total inner iterations (matvec applications)
     :param precon: *linear* right preconditioner ``M⁻¹(r)``
@@ -201,18 +248,17 @@ def gmres(matvec: Callable, b: torch.Tensor,
     eta = DGKS_ETA if lowp else DGKS_ETA_F64
     bdt = dtype if basis_dtype is None else basis_dtype
     eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
-    atol = float(atol)
     cchunk = min(_CHUNK, m + 1)
     V = torch.empty((m + 1, n), dtype=bdt, device=b.device)
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
 
-    def new_cycle(x):
+    def new_cycle(x, tol=0.0):
         r = b - matvec(x)
-        beta = float(norm(r))
+        beta, tol = _read_first(norm(r), tol)
         V[0] = r / max(beta, eps_tiny)
-        return beta
+        return beta, tol
 
-    beta = new_cycle(x)
+    beta, atol = new_cycle(x, atol)
     hist = [beta] * maxiter   # recurrence residual per iteration
     it = nresweep = 0
     res = cycle_res = beta
@@ -242,7 +288,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
         y = scipy.linalg.solve_triangular(H[:kk, :kk], g[:kk], lower=False)
         yt = torch.as_tensor(y, dtype=dtype, device=b.device)
         x = x + precon(V[:kk].to(dtype).T @ yt)
-        beta = new_cycle(x)
+        beta, _ = new_cycle(x)
         # stagnation: a full cycle (or an in-cycle plateau) improved the TRUE
         # residual by < 10% — a roundoff plateau further cycles cannot beat
         stalled = (beta > atol and beta > 0.9 * cycle_res
@@ -269,7 +315,7 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     Givens recurrence, in-cycle plateau exit for f32/bf16 and true-residual
     stall rule.  ``basis_dtype`` is the storage dtype of the Arnoldi basis
     ``V`` only: ``Z`` holds the solution update and stays in the working
-    dtype.
+    dtype.  ``atol`` may be a 0-d tensor, as in :func:`gmres`.
 
     :return: ``(x, KrylovInfo)``, or ``(x, KrylovInfo, hist)`` with
         ``return_hist`` (see :func:`gmres`)
@@ -282,19 +328,18 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     eta = DGKS_ETA if lowp else DGKS_ETA_F64
     bdt = dtype if basis_dtype is None else basis_dtype
     eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
-    atol = float(atol)
     cchunk = min(_CHUNK, m + 1)
     V = torch.empty((m + 1, n), dtype=bdt, device=b.device)
     Z = torch.empty((m, n), dtype=dtype, device=b.device)
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
 
-    def new_cycle(x):
+    def new_cycle(x, tol=0.0):
         r = b - matvec(x)
-        beta = float(norm(r))
+        beta, tol = _read_first(norm(r), tol)
         V[0] = r / max(beta, eps_tiny)
-        return beta
+        return beta, tol
 
-    beta = new_cycle(x)
+    beta, atol = new_cycle(x, atol)
     hist = [beta] * maxiter   # recurrence residual per iteration
     it = nresweep = 0
     res = cycle_res = beta
@@ -323,7 +368,7 @@ def fgmres(matvec: Callable, b: torch.Tensor,
         kk = k + 1
         y = scipy.linalg.solve_triangular(H[:kk, :kk], g[:kk], lower=False)
         x = x + Z[:kk].T @ torch.as_tensor(y, dtype=dtype, device=b.device)
-        beta = new_cycle(x)
+        beta, _ = new_cycle(x)
         stalled = (beta > atol and beta > 0.9 * cycle_res
                    and (kk >= m or stall_in))
         done = beta <= atol or it >= maxiter or stalled

@@ -160,15 +160,26 @@ class ConvectionDiffusionSolver:
 
     def _get_dresiduals(self, dT, du=None, dv=None):
         """Tangent residual with the stored linearization."""
-        dT = self._t(dT)
-        r = self._Pe * ops.apply_convection(self.grid, self._u, self._v, dT) \
+        return self._tangent(self._t(dT), self._u, self._v, self._jac_diag_u,
+                             self._jac_diag_v,
+                             None if du is None else self._t(du),
+                             None if dv is None else self._t(dv), self._sigma)
+
+    def _tangent(self, dT, u, v, jdu, jdv, du, dv, sigma):
+        """The masked tangent residual on the dense path at the wind
+        ``(u, v)`` and the velocity Jacobian diagonals ``jdu``/``jdv``:
+        ``(K + Pe(u∂x + v∂y) + σM) dT + jdu·du + jdv·dv`` (``du``/``dv``
+        None drop their term).  ``sigma`` is a float, or a 0-d tensor: the
+        captured fused programs of the MDA take σ as data, so that a graph
+        captured at one pseudo-time step serves every other."""
+        r = self._Pe * ops.apply_convection(self.grid, u, v, dT) \
             + ops.apply_stiffness(self.grid, dT)
         if du is not None:
-            r = r + self._jac_diag_u * self._t(du)
+            r = r + jdu * du
         if dv is not None:
-            r = r + self._jac_diag_v * self._t(dv)
-        if self._sigma != 0.0:
-            r = r + self._sigma * self._md[self._dtype] * dT
+            r = r + jdv * dv
+        if isinstance(sigma, torch.Tensor) or sigma != 0.0:
+            r = r + sigma * self._md[dT.dtype] * dT
         return torch.where(self._mask, dT, r)
 
     @torch.no_grad()
@@ -188,16 +199,9 @@ class ConvectionDiffusionSolver:
         if self._mixed_precision:
             dT, info = self._update_mixed(drhs, dT0, mtol_f, eps)
         else:
-            # convergence floor: absolute RMS tolerance or mtol relative to
-            # the RHS scale
-            atol = max(mtol_f * np.sqrt(self.N), max(mtol_f, 50 * eps)
-                       * float(torch.linalg.vector_norm(drhs)))
             want_hist = "LGMRES_iter" in self._iprint
-            dT, info, *hist = gmres(
-                self._mv(self._u, self._v, self._sigma), drhs, x0=dT0,
-                atol=atol, restart=self._restart, maxiter=self._maxiter,
-                precon=lambda r: self._fdm(r, sigma=self._sigma),
-                return_hist=want_hist)
+            dT, info, *hist = self._update_f64(drhs, dT0, mtol_f, self._sigma,
+                                               return_hist=want_hist)
             if want_hist:
                 print_hist("ConvectionDiffusion", hist[0], info.iterations)
         self.last_info = info
@@ -212,6 +216,22 @@ class ConvectionDiffusionSolver:
                   f"{info.resnorm:.3e}")
         return dT
 
+    def _update_f64(self, drhs, dT0, mtol, sigma, return_hist=False):
+        """One float64 FDM-preconditioned GMRES on the tangent system
+        (``mixed_precision=False``, and the preconditioner solves of the
+        MDA's device windows), to the absolute RMS tolerance or ``mtol``
+        relative to the RHS scale, whichever is larger.
+
+        :return: ``(dT, KrylovInfo)``, plus the history with ``return_hist``
+        """
+        eps = float(torch.finfo(self._dtype).eps)
+        atol = max(mtol * np.sqrt(self.N), max(mtol, 50 * eps)
+                   * float(torch.linalg.vector_norm(drhs)))
+        return gmres(self._mv(self._u, self._v, sigma), drhs, x0=dT0,
+                     atol=atol, restart=self._restart, maxiter=self._maxiter,
+                     precon=lambda r: self._fdm(r, sigma=sigma),
+                     return_hist=return_hist)
+
     def _lin32(self):
         """f32 casts of the current wind, made once per linearization
         (invalidated by identity of the stored wind fields)."""
@@ -223,12 +243,16 @@ class ConvectionDiffusionSolver:
                                        src[1].to(torch.float32)))
         return self._lin32_cache[1]
 
-    def _update_mixed(self, drhs, dT0, mtol, eps):
-        """f64 refinement around bounded f32 FDM-left-preconditioned GMRES
-        chunks (:func:`sem_tpu_torch.krylov.refined_gmres_host`)."""
+    def _refinement_parts(self):
+        """The pieces of the mixed-precision solve at the current
+        linearization: ``(mv64, pc_lp, chunk)``, the f64 tangent matvec of
+        the refinement residual, the f32 FDM preconditioner of each pass and
+        the bounded f32 FDM-left-preconditioned GMRES chunk (kernel B1; on
+        this rank's row strip under a group, kernel B3).  Shared by
+        :meth:`_update_mixed` and the MDA's fused two-round preconditioner.
+        The chunk returns the f32 history too under ``'LGMRES_iter'``."""
         ul32, vl32 = self._lin32()
         sigma, fdm = self._sigma, self._fdm
-        mv64 = self._mv(self._u, self._v, sigma)
         restart = self._restart
         want_hist = "LGMRES_iter" in self._iprint
         group = active_group()
@@ -246,12 +270,18 @@ class ConvectionDiffusionSolver:
                                 lambda r: fdm(r, sigma=sigma),
                                 restart=restart, maxiter=2 * restart + 5,
                                 return_hist=want_hist)
-        if want_hist:
+        return (self._mv(self._u, self._v, sigma),
+                lambda r32: fdm(r32, sigma=sigma), chunk)
+
+    def _update_mixed(self, drhs, dT0, mtol, eps):
+        """f64 refinement around bounded f32 FDM-left-preconditioned GMRES
+        chunks (:func:`sem_tpu_torch.krylov.refined_gmres_host`)."""
+        mv64, pc_lp, chunk = self._refinement_parts()
+        if "LGMRES_iter" in self._iprint:
             chunk = hist_printing_chunk(chunk, "ConvectionDiffusion")
 
         return refined_gmres_host(
-            cres=lambda x: drhs - mv64(x),
-            pc_lp=lambda r32: fdm(r32, sigma=sigma),
+            cres=lambda x: drhs - mv64(x), pc_lp=pc_lp,
             gmres_chunk=chunk, b=drhs, x0=dT0,
             atol_fn=lambda bn: max(mtol * np.sqrt(self.N),
                                    max(mtol, 50 * eps) * bn),

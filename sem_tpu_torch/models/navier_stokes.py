@@ -344,9 +344,15 @@ class NavierStokesSolver:
         return ru, rv, rc
 
     def _dres(self, du, dv, dp, dT):
+        return self._tangent(du, dv, dp, dT, self._u_lin, self._v_lin,
+                             self._jac)
+
+    def _tangent(self, du, dv, dp, dT, u_lin, v_lin, jac):
+        """The tangent residuals at the linearization ``(u_lin, v_lin,
+        jac)`` (dense path; the captured fused programs of the MDA pass
+        their own copies of it)."""
         grid, mb = self.grid, self._mb
-        jxx, jxy, jyx, jyy = self._jac
-        u_lin, v_lin = self._u_lin, self._v_lin
+        jxx, jxy, jyx, jyy = jac
         dru = self._sys_apply(u_lin, v_lin, du) + jxx * du + jxy * dv \
             + ops.apply_grad_x(grid, dp)
         drv = self._sys_apply(u_lin, v_lin, dv) + jyx * du + jyy * dv \
@@ -626,9 +632,33 @@ class NavierStokesSolver:
             iterate of a previous attempt); the result is never worse
         """
         N = self.N
-        f32 = torch.float32
         eps = float(torch.finfo(self._dtype).eps)
         k_inner = self._velo_inner if velo_inner is None else int(velo_inner)
+        mv64, pc_lp, chunk = self._refinement_parts(k_inner)
+        if "LGMRES_iter" in self._iprint:   # the f32 inner-loop residuals
+            chunk = hist_printing_chunk(chunk, "NavierStokes")
+
+        if x0_full is None:
+            x0_full = torch.cat([torch.zeros(2 * N, dtype=self._dtype,
+                                             device=self.device), dp0])
+        return refined_gmres_host(
+            cres=lambda x: b - mv64(x), pc_lp=pc_lp, gmres_chunk=chunk, b=b,
+            x0=x0_full,
+            atol_fn=lambda bn: max(mtol * np.sqrt(3 * N),
+                                   max(mtol, 50 * eps) * bn),
+            maxiter=self._maxiter, max_refine=self._max_refine)
+
+    def _refinement_parts(self, k_inner: int):
+        """The pieces of the mixed-precision solve at the current
+        linearization: ``(mv64, pc_lp, chunk)``, the f64 saddle matvec of the
+        refinement residual, the f32 prep of each pass's residual and the
+        bounded f32 chunk (kernel B2; kernel B4 on this rank's row strips
+        under a group) of :meth:`_update_coupled_mixed`'s docstring, for
+        ``velo_inner = k_inner``.  Shared with the MDA's fused two-round
+        preconditioner.  The chunk returns the f32 history too under
+        ``'LGMRES_iter'``."""
+        N = self.N
+        f32 = torch.float32
         ul32, vl32, jac32 = self._lin32()
         sigma = self._sigma
         mv64, _ = self._coupled_ops(self._u_lin, self._v_lin, self._jac,
@@ -687,18 +717,7 @@ class NavierStokesSolver:
                                 maxiter=2 * restart + 5,
                                 basis_dtype=basis_dtype,
                                 return_hist=want_hist)
-        if want_hist:   # the f32 inner-loop residuals
-            chunk = hist_printing_chunk(chunk, "NavierStokes")
-
-        if x0_full is None:
-            x0_full = torch.cat([torch.zeros(2 * N, dtype=self._dtype,
-                                             device=self.device), dp0])
-        return refined_gmres_host(
-            cres=lambda x: b - mv64(x), pc_lp=pc_lp, gmres_chunk=chunk, b=b,
-            x0=x0_full,
-            atol_fn=lambda bn: max(mtol * np.sqrt(3 * N),
-                                   max(mtol, 50 * eps) * bn),
-            maxiter=self._maxiter, max_refine=self._max_refine)
+        return mv64, pc_lp, chunk
 
     def _lin32(self):
         """f32 casts of the current linearization, made once per

@@ -30,16 +30,18 @@ these functions of the port:
   ``NavierStokesSolver._update_coupled_f64`` (its f64 rescue);
 * ``mda.bgs_rhs``, ``mda.block_jacobi``, ``mda.apply_linear``:
   ``BoussinesqMDA._bgs_rhs``, ``_block_jacobi`` (the coupled
-  preconditioner) and ``_apply_linear`` (the coupled matvec).
-
-The JAX package's fused device programs (``_build_jnk_cycle``,
-``_build_fg_fused``) are not ported (ROADMAP deferred item 5): the port's
-coupled loop is the host FGMRES, whose pieces are the spans above.
+  preconditioner) and ``_apply_linear`` (the coupled matvec);
+* with ``--fused`` (``BoussinesqMDA(fused=True)``): ``mda.fg_start`` and
+  ``mda.fg_step``, the fused host-FGMRES programs that ``_fg_fused`` binds
+  (a CUDA graph replay on the card), and ``mda.pc_fused``, one application
+  of the fused two-round preconditioner that ``_pc_fused`` binds;
+* ``mda.jnk_cycle``: ``BoussinesqMDA._jnk_window``, one on-device JNK
+  window (``device_krylov=True``; none in this study's solves).
 
 Usage::
 
     python -m sem_tpu_torch.study.krylov_econ [--eta X] [--restart N]
-        [--ra 1e3] [--direct] [--device cpu]
+        [--ra 1e3] [--direct] [--fused] [--device cpu]
 """
 import argparse
 import contextlib
@@ -59,14 +61,15 @@ def instrument_phases(ns, cd, mda=None):
 
     timer = PhaseTimer()
 
-    def wrap(obj, name, key):
-        fn = getattr(obj, name)
-
-        def timed(*a, **k):
+    def timed(fn, key):
+        def spanned(*a, **k):
             with timer(key):
                 return fn(*a, **k)
 
-        setattr(obj, name, timed)
+        return spanned
+
+    def wrap(obj, name, key):
+        setattr(obj, name, timed(getattr(obj, name), key))
 
     wrap(cd, "_update_mixed", "cd.f32_chunks")
     wrap(ns, "_update_coupled_mixed", "ns.f32_chunks")
@@ -76,6 +79,22 @@ def instrument_phases(ns, cd, mda=None):
         wrap(mda.ns_comp, "solve_linear", "ns.solve_linear")
         for name in ("_bgs_rhs", "_block_jacobi", "_apply_linear"):
             wrap(mda, name, f"mda.{name[1:]}")
+        wrap(mda, "_jnk_window", "mda.jnk_cycle")
+        # the bound fused programs, each call a span (never inside a CUDA
+        # graph's capture: the spans wrap what _fg_fused returns)
+        fg_fused, pc_fused = mda._fg_fused, mda._pc_fused
+
+        def fg_fused_timed(*a, **k):
+            start, step, precon_split = fg_fused(*a, **k)
+            return (timed(start, "mda.fg_start"),
+                    timed(step, "mda.fg_step"), precon_split)
+
+        def pc_fused_timed(*a, **k):
+            precon_split = pc_fused(*a, **k)
+            return (None if precon_split is None
+                    else timed(precon_split, "mda.pc_fused"))
+
+        mda._fg_fused, mda._pc_fused = fg_fused_timed, pc_fused_timed
     return timer
 
 
@@ -147,6 +166,10 @@ def main(argv=None):
                     help="single-level p16 solve from zero (no ladder): "
                          "hundreds of f32 iterations, the clean ms/it "
                          "signal")
+    ap.add_argument("--fused", action="store_true",
+                    help="the fused host FGMRES and the two-round "
+                         "preconditioner (BoussinesqMDA(fused=True), the "
+                         "JAX package's default)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     args = ap.parse_args(argv)
@@ -163,10 +186,8 @@ def _run(args, device):
     from sem_tpu_torch.utils import sync
 
     print(f"config: eta={krylov.DGKS_ETA} restart={args.restart or 'auto'} "
-          f"Ra={args.ra:g}", flush=True)
-    print("fused device programs (jnk_cycle, fg_fused): not ported; the "
-          "host FGMRES runs", flush=True)
-    kw = dict(KW, Ra=args.ra, device=device)
+          f"Ra={args.ra:g} fused={args.fused}", flush=True)
+    kw = dict(KW, Ra=args.ra, device=device, fused=args.fused)
 
     def share(rs, its):
         return f"({100 * rs / max(its, 1):.0f}%)"

@@ -9,9 +9,11 @@ reproduces that system from a run checkpoint (same state, same
 measures the per-iteration contraction rate for candidate preconditioner
 strengths (``velo_inner``) and Δt values, without spending march
 wall-clock on blind production runs.  The checkpoint format is shared, so a
-checkpoint of either package's study works.  The port has only the host
-FGMRES (``coupling.mda._fgmres``, no ``fused=`` program); on the CPU the
-JAX package's fused and unfused paths give equal counts.
+checkpoint of either package's study works.  The probe runs the un-fused
+host FGMRES (``coupling.mda._fgmres`` without ``fused=``, the program of
+``BoussinesqMDA(fused=False)``), where the JAX script takes its default
+fused one; on the CPU the JAX package's fused and unfused paths give equal
+counts here.
 
 The RHS is the true PTC right-hand side ``-F(x)``: consistent by
 construction (random RHSs lie about preconditioner quality; this one is the

@@ -147,16 +147,16 @@ def test_ns_lid_cavity_matches_reference(mixed, atol):
 def test_unported_options_raise():
     """What is still unported raises ``NotImplementedError`` and names its
     ROADMAP item; the Uzawa solver and the ``'mass'``/``'pcd'`` Schur blocks
-    (once ROADMAP item 1) construct."""
+    (once ROADMAP item 1) and ``device_krylov=True`` (once item 5) construct."""
     _, ns, _ = build_coupled(1.0, 1.0, mode="JNK", schur_precon="pcd",
                              device="cpu", **QUICK)
     assert ns._schur_precon == "pcd" and ns._fdm_p is not None
     _, ns, _ = build_coupled(1.0, 1.0, mode="JNK", schur_precon="mass",
                              device="cpu", **QUICK)
     assert ns._schur_precon == "mass" and ns._spec is None
-    with pytest.raises(NotImplementedError, match="ROADMAP deferred item 5"):
-        build_coupled(1.0, 1.0, mode="JNK", device_krylov=True,
-                      device="cpu", **QUICK)
+    _, _, mda = build_coupled(1.0, 1.0, mode="JNK", device_krylov=True,
+                              device="cpu", **QUICK)
+    assert mda.device_krylov is True
     ns = TNS(1.0, 1.0, Re=1.0, Gr=0.0, P=2, N_ex=2, N_ey=2,
              linear_solver="uzawa", device="cpu")
     assert ns._linear_solver == "uzawa"

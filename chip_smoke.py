@@ -56,7 +56,18 @@ the last line):
    just after; in each rank B3's and B4's must be > 0 and B1's and B2's 0
    (every f32 matvec went to the strips), the residual must meet atol and
    the u-anchor 3.6531 ± 1e-3.  Rank 0 then times one halo exchange, one
-   full-field all-gather and one all-reduce at the NS chunk's shapes.
+   full-field all-gather and one all-reduce at the NS chunk's shapes.  Each
+   rank then runs three more programs under the group, the counts reset
+   before each: (9b) ``run_parallel(..., velo_inner=5)`` on phase 6's
+   grids, whose B4 launches per coupled GMRES iteration must exceed phase
+   9's; (9c) ``fused=True`` on the same grids (``build_coupled`` under the
+   group, to keep the MDA): the first wall (the graph capture included), a
+   warm wall, and the collectives of one replayed fused step, which must be
+   0; (9d) ``run_parallel(..., device_krylov=True)`` on phase 23c's grids
+   (NS P=16 32×32 / CD P=16 16×16, RMS 1e-10).  Each must meet its residual
+   and the u-anchor 3.6531 ± 1e-3 with B3 and B4 > 0 and B1 and B2 0 in
+   every rank, and the ranks' stats must be equal.  One line prints rank
+   0's runs beside phase 6's solve, one after phase 23 beside 23a and 23c.
 
 10. ``solve_continued`` at full width (the grids and tolerance of phase 6),
     once with the default halving ladder P4→P8→P16 and once with
@@ -172,6 +183,7 @@ the last line):
     stats, launches (B1/B2 > 0), wall and phase 11's anchors.
 
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
+``python3 chip_smoke.py --parallel`` phase 9 (with 9b-9d) alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
 solve for the warm-up and the state), ``python3 chip_smoke.py --drivers``
 phase 19 and then phases 20-22, ``python3 chip_smoke.py --krylov`` phases
@@ -183,7 +195,7 @@ kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
 phases 10–12, 14–15, 18, 19's march, 20–22 (rank 0's for the parallel
-example) and 23; as the last line
+example), 23 and 9b–9d (rank 0's); as the last line
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -206,6 +218,9 @@ NORTH_STAR = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=16, N_ex_cd=32, N_ey_cd=32,
                   P_ns=16, N_ex_ns=64, N_ey_ns=64, mode="JNK",
                   mtol_nonlin=1e-8, iprint=False)
 RANKS = 2            # phase 9
+# phases 9d and 23c: the device windows' grids and tolerance
+DEVICE_GRIDS = dict(NORTH_STAR, N_ex_ns=32, N_ey_ns=32, N_ex_cd=16,
+                    N_ey_cd=16, mtol_nonlin=1e-10)
 RANK_TIMEOUT_S = 600
 # phases 11-13: the grids and tolerance of the main path at Ra=1e5
 PTC_RA1E5 = dict(NORTH_STAR, Ra=1e5, mode="PTC")
@@ -727,7 +742,7 @@ def main():
     walls.mark("8_strip_timings")
 
     # ---- 9. run_parallel, one process per rank ----
-    ranks = run_ranks()
+    ranks = run_ranks(beside)
     r0 = ranks[0]
     walls.mark("9_run_parallel")
 
@@ -747,6 +762,18 @@ def main():
 
     # ---- 23. the fused and on-device coupled Krylov programs ----
     by_path.update(krylov_phase(smi, walls, beside))
+    for path, run in zip(("parallel_velo_inner", "parallel_fused",
+                          "parallel_device_krylov"), r0["runs"].values()):
+        by_path[path] = run["launches"]
+    _line("parallel_vs_phase23", **{
+        k: {key: (round(v, 2) if isinstance(v, float) else v)
+            for key, v in r.items() if key in (
+                "wall_s", "first_solve_s", "warm_solve_s", "stats",
+                "gmres_iters", "launches")}
+        for k, r in (("9c_fused_rank0", r0["runs"]["fused"]),
+                     ("23a_fused", beside["fused"]),
+                     ("9d_device_rank0", r0["runs"]["device_krylov"]),
+                     ("23c_device", beside["device"]))})
     walls.show()
 
     rows = []
@@ -1025,6 +1052,8 @@ def krylov_phase(smi, walls, beside):
     stats, its = mda.stats.as_list(), mda.stats.gmres_iters
     _, _, wall_warm = _counted(mda.solve)
     by_path["krylov_fused_jnk"] = n
+    beside["fused"] = dict(first_solve_s=wall_first, warm_solve_s=wall_warm,
+                           stats=stats, gmres_iters=its, launches=n)
     # one replayed step and its scalar read under the sync debug mode
     mda._linearize(s)
     F = mda._residuals(s)
@@ -1110,8 +1139,7 @@ def krylov_phase(smi, walls, beside):
     # these grids (the smallest stiffness eigenvalues are ~1e-4); on an
     # H100 the two solves gave 3.6504 (device) and 3.6532 (host) there,
     # both residuals within atol
-    grids = dict(NORTH_STAR, N_ex_ns=32, N_ey_ns=32, N_ex_cd=16, N_ey_cd=16,
-                 mtol_nonlin=1e-10)
+    grids = DEVICE_GRIDS
     runs = {}
     for tag, kw in (("host", {}), ("device", dict(device_krylov=True))):
         _, _, mda = build_coupled(1.0, 1.0, device="cuda", **grids, **kw)
@@ -1138,6 +1166,8 @@ def krylov_phase(smi, walls, beside):
                          resid_ok=resid <= mda.atol_nonlin,
                          u_anchor=float(s.u.abs().max()) * 1e3 * 0.71)
     by_path["krylov_device_jnk"] = runs["device"]["launches"]
+    beside["device"] = dict(runs["device"], wall_s=float(
+        runs["device"]["wall_s"]))
     du = abs(runs["device"]["u_anchor"] - runs["host"]["u_anchor"])
     _line("krylov_device_jnk", ns="P16_32x32", cd="P16_16x16", dof=mda.DOF,
           **{f"{tag}_{k}": (f"{v:.4f}" if k == "u_anchor" else v)
@@ -1941,6 +1971,23 @@ def ns_options_main():
     walls.show()
 
 
+def parallel_main():
+    """``--parallel``: the card's line, the build, then phase 9 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    from sem_tpu_torch.ops import _build
+
+    _smi_line()
+    _build.library()
+    walls = Walls()
+    run_ranks()
+    walls.mark("9_run_parallel")
+    walls.show()
+
+
 def ptc_ra_main(Ra):
     """``--ptc-ra``: the card's line, then one ``velo_inner=5`` PTC march."""
     import torch
@@ -1959,10 +2006,12 @@ def _free_port():
         return so.getsockname()[1]
 
 
-def run_ranks():
+def run_ranks(beside=None):
     """Phase 9: start one process of this script per rank, wait for all
     (killing every one on a failure or the time limit), print their output
-    and check each rank's result; returns the ranks' results."""
+    and check each rank's result (9b-9d included); print rank 0's runs
+    beside phase 6's single-process solve (``beside``, where it ran);
+    returns the ranks' results."""
     port = _free_port()
     # each rank writes to a file: a full pipe would block a rank's prints
     # while the other waits for it in a collective
@@ -2011,9 +2060,135 @@ def run_ranks():
                 and n["apply_coupled_system_sharded"] > 0
                 and n["apply_system"] == 0 and n["apply_coupled_system"] == 0):
             raise AssertionError(f"run_parallel failed in rank {r}: {res}")
-    if any(res["stats"] != results[0]["stats"] for res in results):
+    for r, res in enumerate(results):
+        per_it9 = (res["launches"]["apply_coupled_system_sharded"]
+                   / max(res["gmres_iters"], 1))
+        for name, x in res["runs"].items():
+            n = x["launches"]
+            ok = (x["finite"] and x["residual"] <= x["atol"]
+                  and abs(x["u_anchor"] - 3.6531) <= 1e-3
+                  and n["apply_system_sharded"] > 0
+                  and n["apply_coupled_system_sharded"] > 0
+                  and n["apply_system"] == 0
+                  and n["apply_coupled_system"] == 0)
+            if name == "velo_inner":
+                x["b4_per_gmres_it"] = (n["apply_coupled_system_sharded"]
+                                        / max(x["gmres_iters"], 1))
+                ok = ok and x["b4_per_gmres_it"] > per_it9
+            if name == "fused":
+                ok = ok and x["captured"] and all(
+                    v == 0 for v in x["replayed_step_collectives"].values())
+            if not ok:
+                raise AssertionError(f"phase 9 run {name} failed in rank "
+                                     f"{r}: {x}")
+    if any(res["stats"] != results[0]["stats"]
+           or any(x["stats"] != results[0]["runs"][k]["stats"]
+                  for k, x in res["runs"].items()) for res in results):
         raise AssertionError(f"ranks disagree: {results}")
+    r0 = results[0]
+    six = (beside or {}).get("north_star")
+    _line("parallel_vs_single",
+          phase9=dict(wall_s=round(r0["run_parallel_s"], 2),
+                      stats=r0["stats"], gmres_iters=r0["gmres_iters"],
+                      b4_per_gmres_it=round(
+                          r0["launches"]["apply_coupled_system_sharded"]
+                          / max(r0["gmres_iters"], 1), 2)),
+          **{f"9{c}_{k}": {key: (round(v, 2) if isinstance(v, float) else v)
+                           for key, v in x.items()
+                           if key in ("wall_s", "first_solve_s",
+                                      "warm_solve_s", "stats",
+                                      "gmres_iters", "launches",
+                                      "collectives", "b4_per_gmres_it")}
+             for c, (k, x) in zip("bcd", r0["runs"].items())},
+          phase6=("not_run" if six is None else dict(
+              solve_s=round(six["solve_s"], 2), stats=six["stats"],
+              gmres_iters=six["gmres_iters"], launches=six["launches"])))
     return results
+
+
+def parallel_programs(tag, dev, group, pts, mda9):
+    """Phases 9b-9d in one rank (module docstring): each run with the kernel
+    launch and collective counts set to 0 just before and read just after.
+    ``mda9`` is phase 9's MDA, whose residual serves 9b's grids.  Returns
+    ``{run: result}``."""
+    import torch
+    from sem_tpu_torch.coupling import build_coupled, run_parallel
+    from sem_tpu_torch.ops import COLLECTIVES, LAUNCHES
+    from sem_tpu_torch.parallel import use_group
+
+    def reset():
+        for counts in (LAUNCHES, COLLECTIVES):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def result(name, s, stats, mda, wall):
+        torch.cuda.synchronize(dev)
+        r = dict(wall_s=wall, stats=stats.as_list(),
+                 gmres_iters=stats.gmres_iters, launches=dict(LAUNCHES),
+                 collectives=dict(COLLECTIVES),
+                 residual=float(torch.linalg.vector_norm(mda._residuals(s))),
+                 atol=mda.atol_nonlin,
+                 u_anchor=float(s.u.abs().max()) * 1e3 * 0.71,
+                 finite=all(bool(torch.isfinite(f).all())
+                            for f in (s.T, s.u, s.v, s.p)))
+        _line(tag, run=name, **{k: (f"{v:.3e}" if k == "residual" else
+                                        f"{v:.4f}" if k == "u_anchor" else
+                                        f"{v:.2f}" if k.endswith("_s") else v)
+                                     for k, v in r.items()})
+        return r
+
+    runs = {}
+    # ---- 9b. the flexible chunks on the strips ----
+    t0 = reset()
+    *_, s, stats = run_parallel(pts, 1.0, 1.0, return_state=True, device=dev,
+                                velo_inner=5, **NORTH_STAR)
+    runs["velo_inner"] = result("9b_velo_inner", s, stats, mda9,
+                                time.perf_counter() - t0)
+
+    # ---- 9c. the fused programs (run_parallel's body, to keep the MDA) ----
+    t0 = reset()
+    with use_group(group):
+        _, _, mda = build_coupled(1.0, 1.0, device=dev, fused=True,
+                                  **NORTH_STAR)
+        s = mda.solve()
+        first = time.perf_counter() - t0
+        r = result("9c_fused", s, mda.stats, mda, first)
+        t0 = time.perf_counter()
+        mda.solve()
+        torch.cuda.synchronize(dev)
+        warm = time.perf_counter() - t0
+        # the collectives of one replayed fused step
+        mda._linearize(s)
+        F = mda._residuals(s)
+        start, step, precon_split = mda._fg_fused(mtol=mda.mtol_precon)
+        out = start(1e-3 * F, -F)
+        z = precon_split(*out[6:-1])
+        torch.cuda.synchronize(dev)
+        before = dict(COLLECTIVES)
+        step(*out[:6], 0, *z)
+        torch.cuda.synchronize(dev)
+        replay = {k: COLLECTIVES[k] - before[k] for k in before}
+    r.update(first_solve_s=first, warm_solve_s=warm,
+             replayed_step_collectives=replay,
+             captured=mda._fg_graphs is not None)
+    _line(tag, run="9c_fused", first_solve_s=f"{first:.2f}",
+          warm_solve_s=f"{warm:.2f}", replayed_step_collectives=replay,
+          captured=r["captured"])
+    runs["fused"] = r
+    del mda, start, step
+    torch.cuda.empty_cache()
+
+    # ---- 9d. the device windows on phase 23c's grids ----
+    with use_group(group):
+        _, _, mda = build_coupled(1.0, 1.0, device=dev, **DEVICE_GRIDS)
+    t0 = reset()
+    *_, s, stats = run_parallel(pts, 1.0, 1.0, return_state=True, device=dev,
+                                device_krylov=True, **DEVICE_GRIDS)
+    runs["device_krylov"] = result("9d_device_krylov", s, stats, mda,
+                                   time.perf_counter() - t0)
+    return runs
 
 
 def rank_main(rank: int, world: int, port: int):
@@ -2097,13 +2272,14 @@ def rank_main(rank: int, world: int, port: int):
                    group, torch.ones(17, device=dev)))}
     _line(tag, collective_us={k: f"{v:.1f}" for k, v in coll_us.items()},
           strip_rows=f"{st.rows[0]}:{st.rows[1]}", Ngy=ns.grid.Ngy)
+    runs = parallel_programs(tag, dev, group, pts, mda)
     print("RANK_RESULT " + json.dumps({
         "rank": rank, "backend": group.backend, "stats": stats.as_list(),
         "gmres_iters": stats.gmres_iters, "residual": resid,
         "atol": mda.atol_nonlin, "u_anchor": u_anchor, "finite": finite,
         "launches": launches, "collectives": collectives,
         "collective_us": coll_us, "run_parallel_s": t_run,
-        "build_s": t_build, "peak_bytes": peak}), flush=True)
+        "build_s": t_build, "peak_bytes": peak, "runs": runs}), flush=True)
     # leaving with the group alive can abort at interpreter exit (gloo)
     dist.barrier()
     dist.destroy_process_group()
@@ -2128,6 +2304,9 @@ if __name__ == "__main__":
                     help="instead of the smoke run: phases 6 and 11, then "
                          "phase 23 (the fused and on-device coupled Krylov "
                          "programs)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="instead of the smoke run: phase 9 alone (two rank "
+                         "processes: run_parallel and its programs 9b-9d)")
     ap.add_argument("--drivers", action="store_true",
                     help="instead of the smoke run: phase 19, then phases "
                          "20-22 alone (the examples, the bench, the study "
@@ -2137,6 +2316,8 @@ if __name__ == "__main__":
         ptc_ra_main(a.ptc_ra)
     elif a.drivers:
         drivers_main()
+    elif a.parallel:
+        parallel_main()
     elif a.krylov:
         krylov_main()
     elif a.ns_options:

@@ -234,10 +234,12 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
         mtol_nonlin=1e-9, AGi=8, AGr=0.8, AGc=0.2,
         mtol_gmres=1e-10, restart=20,
         mtol_internal=1e-13, mtol_precon=1e-4, iprint=True,
-        return_state=False, device_krylov=None, device="cuda", fused=False):
+        return_state=False, device_krylov=None, device="cuda", fused=False,
+        velo_inner=0, **mda_kwargs):
     """Solve the coupled Boussinesq problem; return (T, u, v) at plot points
     as NumPy arrays (plus the state and the MDA stats with
-    ``return_state``)."""
+    ``return_state``).  ``velo_inner`` and the extra keyword arguments
+    (``precon``, ``ptc_dt0``, ...) pass through to :func:`build_coupled`."""
     cd, ns, mda = build_coupled(L_x, L_y, Re, Ra, Pr,
                                 P_cd, N_ex_cd, N_ey_cd,
                                 P_ns, N_ex_ns, N_ey_ns,
@@ -245,7 +247,8 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
                                 mtol_gmres, restart, mtol_internal,
                                 mtol_precon, iprint,
                                 device_krylov=device_krylov, device=device,
-                                fused=fused)
+                                fused=fused, velo_inner=velo_inner,
+                                **mda_kwargs)
     state = mda.solve()
     T_plot = cd._get_interpol(state.T, points_plot)
     u_plot = ns._get_interpol(state.u, points_plot)
@@ -255,17 +258,22 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
     return T_plot, u_plot, v_plot
 
 
-def run_parallel(points_plot, L_x, L_y, *args, **kwargs):
-    """:func:`run` decomposed over every rank of the process group of
-    :func:`sem_tpu_torch.parallel.init_distributed`.
+def run_parallel(points_plot, L_x, L_y, *args, devices=None, **kwargs):
+    """:func:`run` decomposed over the ranks ``devices`` (all by default) of
+    the process group of :func:`sem_tpu_torch.parallel.init_distributed`.
 
-    Counterpart of ``sem_tpu.coupling.run_parallel``: every rank calls it
-    with the same arguments, each f32 Krylov chunk of the CD and NS solves
-    runs on row strips (kernels B3/B4, halo exchanges, all-reduced GMRES),
-    and every rank returns the same replicated results.  Pass each rank its
-    own ``device`` (the one ``init_distributed`` returns).
+    Counterpart of ``sem_tpu.coupling.run_parallel``: every rank of the
+    process group calls it with the same arguments, each f32 Krylov chunk of
+    the CD and NS solves runs on row strips over the ranks of ``devices``
+    (kernels B3/B4, halo exchanges, all-reduced GMRES), and each of them
+    returns the same replicated results; a rank outside ``devices`` returns
+    ``None`` without solving.  Pass each rank its own ``device`` (the one
+    ``init_distributed`` returns).
     """
     from sem_tpu_torch.parallel import make_group, use_group
 
-    with use_group(make_group()):
+    group = make_group(devices)
+    if group is None:
+        return None
+    with use_group(group):
         return run(points_plot, L_x, L_y, *args, **kwargs)

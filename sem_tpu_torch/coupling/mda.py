@@ -39,6 +39,12 @@ Two other programs solve the coupled linear systems, as in the reference:
   the PTC) linear solves run as warm-started windows of
   :func:`sem_tpu_torch.krylov.fgmres` with float64 nested discipline solves
   (:meth:`BoussinesqMDA._fgmres_device`).
+
+Under a process group (:func:`sem_tpu_torch.parallel.use_group`) every
+program runs.  The coupled vectors, the fused step and the device windows'
+f64 nested solves stay replicated on every rank; the disciplines' f32
+chunks (the preconditioners' and the Gauss-Seidel sweeps') run on row
+strips.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from sem_tpu_torch.coupling.components import (ConvectionDiffusionComponent,
                                                NavierStokesComponent)
 from sem_tpu_torch.interp import apply_transfer
 from sem_tpu_torch.krylov import _givens_update_device, fgmres
+from sem_tpu_torch.ops.sharded import COLLECTIVES
 from sem_tpu_torch.parallel.distributed import assert_replicated
 from sem_tpu_torch.parallel.sharding import active_group
 from sem_tpu_torch.ptc import SERController
@@ -322,7 +329,10 @@ class _CapturedFG:
     set per graph, overwritten by the next replay).  Everything cached on
     first use (cuBLAS handles, the transfer matrices and grid constants) is
     made by one eager warm-up on a side stream before the capture; a
-    capture that fails raises."""
+    capture that fails raises, and so does one that ran a collective of
+    :mod:`sem_tpu_torch.ops.sharded` (under a process group the programs
+    act on the replicated coupled vector, and a replayed collective would
+    tie the ranks' replays together)."""
 
     def __init__(self, start, step, lin, n, sizes):
         dev = lin[0].device
@@ -333,6 +343,7 @@ class _CapturedFG:
         self.z = tuple(torch.zeros(s, dtype=f64, device=dev) for s in sizes)
         self.lin = tuple(torch.empty_like(t) for t in lin)
         self.bind(lin)
+        before = dict(COLLECTIVES)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -346,6 +357,10 @@ class _CapturedFG:
         with torch.cuda.graph(self.g_step):
             self.step_out = step(*self.start_out[:6], self.k, *self.z,
                                  *self.lin)
+        if COLLECTIVES != before:
+            raise RuntimeError(f"the fused FGMRES programs ran collectives "
+                               f"({before} -> {COLLECTIVES}); they must act "
+                               f"on the replicated vector alone")
 
     def bind(self, lin):
         for dst, src in zip(self.lin, lin):
@@ -439,12 +454,6 @@ class BoussinesqMDA:
                  fused: bool = False):
         if mode not in ("GS", "NJ", "JNK", "PTC"):
             raise ValueError("Unknown method")
-        group = active_group()
-        if (device_krylov or fused) and group is not None and group.world > 1:
-            raise NotImplementedError(
-                "device_krylov=True and fused=True are not decomposed over a "
-                "process group in sem_tpu_torch yet (ROADMAP deferred item "
-                "6); run_parallel takes the host FGMRES")
         if precon is None:
             precon = "bgs" if mode == "PTC" else "bj"
         if precon not in ("bj", "bgs", "bgs2"):
@@ -562,10 +571,14 @@ class BoussinesqMDA:
 
     def _maybe_checkpoint(self, s: CoupledState, k: int, force=False):
         """Persist the coupled iterate every ``checkpoint_every`` accepted
-        nonlinear iterations (no-op unless ``checkpoint_path`` is set)."""
+        nonlinear iterations (no-op unless ``checkpoint_path`` is set; under
+        a process group rank 0 alone writes)."""
         if self.checkpoint_path and (force or k % self.checkpoint_every == 0):
             self.stats.cd_solves = self.cd_comp.iter_count_solve
             self.stats.ns_solves = self.ns_comp.iter_count_solve
+            group = active_group()
+            if group is not None and group.rank != 0:
+                return    # the iterate is replicated: rank 0 writes it
             extras = ({"ptc_dt": float(self._ptc_dt_current)}
                       if self._ptc_dt_current is not None else None)
             save_checkpoint(self.checkpoint_path, s, self.checkpoint_config,

@@ -12,10 +12,10 @@ iteration reads back one small vector (the new Hessenberg column and two
 norms), which is also what the convergence test needs; an iteration whose
 DGKS test asks for a second orthogonalization sweep reads back once more.
 
-``gmres(..., group=g)`` runs on row strips over the ranks of ``g``: each norm
-and each chunk of projection coefficients is reduced locally, then
-all-reduced.  :func:`strip_chunk` builds the solvers' decomposed f32 chunks
-on it.
+``gmres(..., group=g)`` and ``fgmres(..., group=g)`` run on row strips over
+the ranks of ``g``: each norm and each chunk of projection coefficients is
+reduced locally, then all-reduced.  :func:`strip_chunk` builds the solvers'
+decomposed f32 chunks on it.
 """
 from __future__ import annotations
 
@@ -36,7 +36,8 @@ __all__ = ["gmres", "fgmres", "cg", "strip_chunk", "refined_gmres_host",
 
 def rownorm_estimate(matvec: Callable, n: int, dtype,
                      generator: Optional[torch.Generator] = None,
-                     probes=8, *, device="cpu") -> torch.Tensor:
+                     probes=8, *, device="cpu", strips=None,
+                     nf: int = 1) -> torch.Tensor:
     """Stochastic row-norm estimate of a linear operator:
     ``d_i = sqrt(mean_k (A z_k)_i²)`` over Rademacher probes ``z_k``, an
     unbiased estimator of the squared row 2-norms.  ``diag(d)`` is the norm
@@ -49,16 +50,23 @@ def rownorm_estimate(matvec: Callable, n: int, dtype,
         tensor
     :param probes: the number of probes, or a ``(k, n)`` tensor of ±1 probe
         vectors to use as they are (e.g. the ones another package drew)
+    :param strips: a :class:`sem_tpu_torch.ops.RowStrips`: ``matvec`` takes
+        and returns this rank's strips of ``nf`` stacked fields, each probe
+        (of the full length ``n``) is cut to them first, and the per-row
+        estimate is all-gathered before the floor (one collective), so every
+        rank returns the full single-process estimate
     """
     if isinstance(probes, int):
         z = torch.randint(0, 2, (probes, n), generator=generator,
                           dtype=torch.int8, device="cpu")
         probes = (2 * z - 1).to(device=device, dtype=dtype)
-    acc = torch.zeros(n, dtype=dtype, device=probes.device)
+    acc = 0.0
     for z in probes.to(dtype):
-        w = matvec(z)
+        w = matvec(z if strips is None else strips.local(z, nf))
         acc = acc + w * w
     d = torch.sqrt(acc / probes.shape[0])
+    if strips is not None:
+        d = strips.gather(d, nf)
     return torch.maximum(d, 1e-12 * d.max())
 
 
@@ -199,6 +207,18 @@ def _read_first(rnorm, atol):
     return float(rnorm), float(atol)
 
 
+def _norm(group):
+    """The 2-norm of a vector, or of a vector decomposed into this rank's
+    strips over ``group`` (the local square sum, all-reduced)."""
+    if group is None:
+        return torch.linalg.vector_norm
+
+    def norm(x):
+        return torch.sqrt(all_reduce(group, (x @ x).reshape(1)))[0]
+
+    return norm
+
+
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, *, atol: float,
           restart: int = 30, maxiter: int = 1000,
@@ -236,11 +256,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
     """
     if precon is None:
         precon = lambda r: r  # noqa: E731
-    if group is None:
-        norm = torch.linalg.vector_norm
-    else:
-        def norm(x):
-            return torch.sqrt(all_reduce(group, (x @ x).reshape(1)))[0]
+    norm = _norm(group)
     m = int(restart)
     n = b.shape[0]
     dtype = b.dtype
@@ -305,7 +321,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
 def fgmres(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None, *, atol: float,
            restart: int = 20, maxiter: int = 1000, precon: Callable,
-           return_hist: bool = False, basis_dtype=None):
+           return_hist: bool = False, basis_dtype=None, group=None):
     """Flexible GMRES(m): the right preconditioner may vary per application
     (it may contain inner Krylov solves), so the preconditioned vectors ``Z``
     are stored and the solution update uses them (Saad's FGMRES).
@@ -315,12 +331,13 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     Givens recurrence, in-cycle plateau exit for f32/bf16 and true-residual
     stall rule.  ``basis_dtype`` is the storage dtype of the Arnoldi basis
     ``V`` only: ``Z`` holds the solution update and stays in the working
-    dtype.  ``atol`` may be a 0-d tensor, as in :func:`gmres`.
+    dtype.  ``atol`` may be a 0-d tensor, and ``group`` decomposes the solve
+    over row strips, as in :func:`gmres`.
 
     :return: ``(x, KrylovInfo)``, or ``(x, KrylovInfo, hist)`` with
         ``return_hist`` (see :func:`gmres`)
     """
-    norm = torch.linalg.vector_norm
+    norm = _norm(group)
     m = int(restart)
     n = b.shape[0]
     dtype = b.dtype
@@ -354,7 +371,7 @@ def fgmres(matvec: Callable, b: torch.Tensor,
         while True:
             Z[k] = precon(V[k].to(dtype))
             hk, resw = _arnoldi_column(V, matvec(Z[k]), k, cchunk, eta,
-                                       eps_tiny, norm)
+                                       eps_tiny, norm, group)
             nresweep += resw
             res = _givens(hk, cs, sn, g, k)
             H[:k + 2, k] = hk

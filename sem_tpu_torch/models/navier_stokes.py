@@ -32,12 +32,12 @@ stays replicated.
 ``k`` FDM-preconditioned GMRES steps on the true shifted velocity Jacobian
 (kernel B2 again, ``k`` more times per application); the outer loop is then
 flexible: :func:`sem_tpu_torch.krylov.fgmres` on the f64 path, row-scaled
-right-preconditioned flexible f32 chunks on the mixed path.
+right-preconditioned flexible f32 chunks on the mixed path.  Under a group
+the flexible chunk runs on the strips too: the outer ``fgmres(group=)`` and
+the ``k`` inner velocity steps on B4, the Schur block and the FDM on
+all-gathered full fields.
 :meth:`NavierStokesSolver.solve_ptc` is the pseudo-transient continuation
 solve and :func:`solve_ns_continued` the p-continuation one.
-
-Not ported yet (it raises ``NotImplementedError``): the flexible chunks
-under a process group (ROADMAP deferred item 6).
 """
 from __future__ import annotations
 
@@ -55,6 +55,7 @@ from sem_tpu_torch.krylov import (fgmres, gmres, hist_printing_chunk,
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_coupled_system_best,
                                apply_coupled_system_sharded)
+from sem_tpu_torch.ops.sharded import strip_maps
 from sem_tpu_torch.parallel.sharding import active_group, row_strips
 from sem_tpu_torch.ptc import SERController
 from sem_tpu_torch.utils.tensors import device_const
@@ -415,10 +416,13 @@ class NavierStokesSolver:
         ``dtype`` (float32 → kernel B2, float64 → the dense path).  With
         ``strips``, the matvec takes and returns this rank's f32 strips of
         (du, dv, dp) (one halo exchange, then kernel B4); the preconditioner
-        stays on full fields.  With ``velo_inner=k > 0`` the preconditioner's
-        velocity block is ``k`` GMRES steps on the true shifted velocity
-        Jacobian (the matvec on (du, dv, 0)), FDM-preconditioned; it then
-        varies per application and needs a flexible outer loop."""
+        takes and returns full fields.  With ``velo_inner=k > 0`` the
+        preconditioner's velocity block is ``k`` GMRES steps on the true
+        shifted velocity Jacobian (the matvec on (du, dv, 0)),
+        FDM-preconditioned; it then varies per application and needs a
+        flexible outer loop.  With ``strips`` those steps run on this rank's
+        (du, dv) strips (``gmres(group=)``, kernel B4 with one halo exchange
+        per step), the FDM on the all-gathered full fields."""
         grid, mb, N, Re = self.grid, self._mb, self.N, self._Re
         ul, vl = u_lin.to(dtype), v_lin.to(dtype)
         jac = tuple(j.to(dtype) for j in jac)
@@ -484,18 +488,22 @@ class NavierStokesSolver:
             # the true shifted velocity Jacobian (convection + reaction
             # diagonals; mv carries σ inside jxx/jyy, matching fdm's σ) by a
             # bounded inner GMRES with the FDM as right preconditioner
-            zp = torch.zeros(N, dtype=dtype, device=r.device)
+            b2 = torch.cat([bu, bv])
+            cut, gather = strip_maps(strips, 2)
+            n2 = cut(b2).shape[0]
+            zp = torch.zeros(n2 // 2, dtype=dtype, device=r.device)
 
             def mv_velo(q2):
-                return mv(torch.cat([q2, zp]))[:2 * N]
+                return mv(torch.cat([q2, zp]))[:n2]
 
             def pc_velo(q2):
-                return fdm(q2.reshape(2, N), sigma=sigma).reshape(-1)
+                return cut(fdm(gather(q2).reshape(2, N),
+                               sigma=sigma).reshape(-1))
 
-            q2, _ = gmres(mv_velo, torch.cat([bu, bv]), atol=0.0,
-                          restart=velo_inner, maxiter=velo_inner,
-                          precon=pc_velo)
-            return torch.cat([q2, dp])
+            q2, _ = gmres(mv_velo, cut(b2), atol=0.0, restart=velo_inner,
+                          maxiter=velo_inner, precon=pc_velo,
+                          group=None if strips is None else strips.group)
+            return torch.cat([gather(q2), dp])
 
         return mv, pc
 
@@ -653,10 +661,10 @@ class NavierStokesSolver:
         linearization: ``(mv64, pc_lp, chunk)``, the f64 saddle matvec of the
         refinement residual, the f32 prep of each pass's residual and the
         bounded f32 chunk (kernel B2; kernel B4 on this rank's row strips
-        under a group) of :meth:`_update_coupled_mixed`'s docstring, for
-        ``velo_inner = k_inner``.  Shared with the MDA's fused two-round
-        preconditioner.  The chunk returns the f32 history too under
-        ``'LGMRES_iter'``."""
+        under a group, for both flavors) of :meth:`_update_coupled_mixed`'s
+        docstring, for ``velo_inner = k_inner``.  Shared with the MDA's
+        fused two-round preconditioner.  The chunk returns the f32 history
+        too under ``'LGMRES_iter'``."""
         N = self.N
         f32 = torch.float32
         ul32, vl32, jac32 = self._lin32()
@@ -667,32 +675,35 @@ class NavierStokesSolver:
         want_hist = "LGMRES_iter" in self._iprint
         group = active_group()
         decomposed = group is not None and group.world > 1
+        st = RowStrips(self.grid, group) if decomposed else None
         if k_inner > 0:
-            if decomposed:
-                raise NotImplementedError(
-                    "the flexible velo_inner chunks are not decomposed over "
-                    "a process group in sem_tpu_torch yet (ROADMAP deferred "
-                    "item 6); run velo_inner > 0, and solves that escalate "
-                    "to it, in a single process")
-            mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, f32,
+            # under a group: the outer loop on this rank's strips of
+            # (du, dv, dp) (B4 matvec), the preconditioner on the gathered
+            # full residual, its inner velocity steps on (du, dv) strips
+            mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, f32, st,
                                            velo_inner=k_inner)
             if self._dinv32 is None:
                 # the same ±1 probes for every linearization
                 gen = torch.Generator(device="cpu").manual_seed(0)
                 self._dinv32 = 1.0 / rownorm_estimate(
-                    mv32, 3 * N, f32, gen, device=self.device)
+                    mv32, 3 * N, f32, gen, device=self.device, strips=st,
+                    nf=3)
             dinv32 = self._dinv32
+            cut, gather = strip_maps(st, 3)
+            dinv_s = cut(dinv32)
 
             def pc_lp(r32):
                 return r32 * dinv32
 
             def chunk(rp, x0, atol_lp):
-                return fgmres(lambda q: mv32(q) * dinv32, rp, x0,
-                              atol=atol_lp, restart=restart,
-                              maxiter=2 * restart + 5,
-                              basis_dtype=basis_dtype,
-                              precon=lambda r: pc32(r / dinv32, sigma),
-                              return_hist=want_hist)
+                x, *rest = fgmres(
+                    lambda q: mv32(q) * dinv_s, cut(rp), cut(x0),
+                    atol=atol_lp, restart=restart, maxiter=2 * restart + 5,
+                    basis_dtype=basis_dtype,
+                    precon=lambda r: cut(pc32(gather(r) / dinv32, sigma)),
+                    return_hist=want_hist,
+                    group=group if decomposed else None)
+                return (gather(x), *rest)
         elif not decomposed:
             mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, f32)
 
@@ -707,7 +718,6 @@ class NavierStokesSolver:
         else:
             # row strips of (du, dv, dp): B4 matvec on this rank's strips,
             # the preconditioner replicated
-            st = RowStrips(self.grid, group)
             mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, f32, st)
 
             def pc_lp(r32):

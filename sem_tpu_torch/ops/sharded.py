@@ -33,7 +33,8 @@ from sem_tpu_torch.ops.kernels import (_band_ptrs, _check, _coupled_plain,
                                        row_window_tiles)
 from sem_tpu_torch.parallel.sharding import row_strips
 
-__all__ = ["COLLECTIVES", "RowStrips", "all_reduce", "strip_with_halo",
+__all__ = ["COLLECTIVES", "RowStrips", "all_reduce", "strip_maps",
+           "strip_with_halo",
            "apply_system_sharded", "apply_system_sharded_plain",
            "apply_coupled_system_sharded",
            "apply_coupled_system_sharded_plain"]
@@ -106,6 +107,16 @@ class RowStrips:
         COLLECTIVES["strip_gather"] += 1
         return torch.cat([p[:, :b - a] for p, (a, b) in
                           zip(parts, self.bounds)], dim=1).reshape(-1)
+
+
+def strip_maps(strips, nf: int = 1):
+    """``(cut, gather)``: this rank's strips of ``nf`` stacked full fields
+    (:meth:`RowStrips.local`) and the full fields back from every rank's
+    (:meth:`RowStrips.gather`); both the identity where ``strips`` is
+    None."""
+    if strips is None:
+        return (lambda x: x), (lambda x: x)
+    return (lambda x: strips.local(x, nf)), (lambda x: strips.gather(x, nf))
 
 
 # ----------------------------- plain versions ----------------------------- #

@@ -18,9 +18,12 @@ Flags (comma-separated sweep lists):
                     high-Ra path)
     -log True       tee stdout to <outdir>/<title>.log
     -save True      save .npz results and the .stats.json sidecar
-    -backend single single only; mesh raises NotImplementedError (the port's
-                    multi-process solve is ``run_parallel``, a launch of its
-                    own: ROADMAP deferred item 6)
+    -backend single single | mesh (mesh: every rank of the process group
+                    that the SEM_TPU_COORDINATOR, SEM_TPU_NUM_PROCESSES and
+                    SEM_TPU_PROCESS_ID variables describe runs this same
+                    command, the solve is decomposed over them, and rank 0
+                    alone writes the files; without the variables one
+                    process runs the single path)
     -racont True    Ra continuation up to each Ra (solve_ra_continued)
     -ckpt True      checkpoint the coupled iterate every few nonlinear
                     iterations, and the converged state at the end, to
@@ -46,6 +49,7 @@ Flags (comma-separated sweep lists):
 
 Run: ``python -m sem_tpu_torch.study.boussinesq_run -P 4 -Ne 8 -mode JNK``
 """
+import contextlib
 import json
 import os
 import sys
@@ -86,14 +90,15 @@ def run(log=False, save=True,
     """One run of the sweep; returns ``(state, MDAStats)``.  ``forcing=None``
     keeps the coupled GMRES at a fixed tolerance, so the saved iteration
     counts compare with ``sem_tpu``'s study."""
-    if backend != "single":
-        raise NotImplementedError(
-            f"-backend {backend}: sem_tpu_torch's multi-process solve is "
-            f"run_parallel, started once per rank (ROADMAP deferred item "
-            f"6); this script runs one process")
+    if backend not in ("single", "mesh"):
+        raise ValueError(f"-backend {backend}: single or mesh")
     from sem_tpu_torch import operators as ops
     from sem_tpu_torch.coupling import build_coupled
+    from sem_tpu_torch.parallel import use_group
     from sem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    group = mesh_group(device) if backend == "mesh" else None
+    writer = group is None or group.rank == 0
 
     # the run title of sem_tpu's study: mode, physics, discretization and
     # the mode's tolerances
@@ -108,8 +113,9 @@ def run(log=False, save=True,
     else:
         raise RuntimeError("Unknown method")
     print(title)
-    os.makedirs(outdir, exist_ok=True)
-    if log:
+    if writer:
+        os.makedirs(outdir, exist_ok=True)
+    if log and writer:
         sys.stdout = Logger(os.path.join(outdir, f"{title}.log"))
 
     try:
@@ -142,11 +148,17 @@ def run(log=False, save=True,
                 "run from the checkpoint")
         if ckpt or resume:
             kw["checkpoint_path"] = os.path.join(outdir, f"{title}.ckpt.npz")
+        def grouped():
+            return (use_group(group) if group is not None
+                    else contextlib.nullcontext())
+
         if racont:
             from sem_tpu_torch.coupling import solve_ra_continued
-            cd, ns, mda, state = solve_ra_continued(L_x, L_y, Ra, **kw)
+            with grouped():
+                cd, ns, mda, state = solve_ra_continued(L_x, L_y, Ra, **kw)
         else:
-            cd, ns, mda = build_coupled(L_x, L_y, Ra=Ra, **kw)
+            with grouped():
+                cd, ns, mda = build_coupled(L_x, L_y, Ra=Ra, **kw)
             state0 = None
             if resume and os.path.exists(kw["checkpoint_path"]):
                 state0, _, it0, extras = load_checkpoint(
@@ -173,14 +185,15 @@ def run(log=False, save=True,
                         f"-init checkpoint discretization mismatch: {mism}")
                 print(f"init from {init} "
                       f"(Ra={cfg0.get('Ra')}, Re={cfg0.get('Re')})")
-            state = mda.solve(state0)
-        if ckpt or resume:
+            with grouped():
+                state = mda.solve(state0)
+        if (ckpt or resume) and writer:
             # the converged state too (the MDA writes every few iterations
             # only), so that adjoint_hi reads a converged state
             mda._maybe_checkpoint(state, mda.stats.nonlinear_iters,
                                   force=True)
     finally:
-        if log:
+        if log and writer:
             sys.stdout.log.close()
             sys.stdout = sys.__stdout__
 
@@ -194,7 +207,7 @@ def run(log=False, save=True,
     iters = mda.stats.as_list()
     print(iters)
 
-    if save:
+    if save and writer:
         np.savez(os.path.join(outdir, title), T_e, u_e, v_e, np.array(iters))
         stats = dict(mode=mode, Re=Re, Ra=Ra, Pr=Pr, P=P, Ne=N_e,
                      iters=[int(x) for x in iters],
@@ -206,7 +219,27 @@ def run(log=False, save=True,
     return state, mda.stats
 
 
+def mesh_group(device):
+    """The group of ``-backend mesh``: every rank of the process group that
+    the ``SEM_TPU_*`` variables describe (initialized here on first use,
+    over gloo for ``-device cpu``), or ``None`` without the variables, where
+    one process runs the single path (a group of one rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from sem_tpu_torch.parallel import init_distributed, make_group
+
+    if not dist.is_initialized():
+        if "SEM_TPU_COORDINATOR" not in os.environ:
+            return None
+        init_distributed(backend="gloo" if torch.device(device).type == "cpu"
+                         else None)
+    return make_group()
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
     args = sys.argv if argv is None else [sys.argv[0]] + list(argv)
     opts = dict(save=True, log=False, mode="JNK", racont=False, ckpt=False,
                 resume=False, velo_inner=0, init=None, budget=None,
@@ -214,6 +247,7 @@ def main(argv=None):
                 ptc_dtmax=None, schur=None, precon=None, backend="single",
                 device="cuda", outdir=OUTDIR)
     sweep = dict(P=[4], Ne=[8], Re=[1.e3], Ra=[1.e3])
+    started = dist.is_initialized()   # by the caller, who ends it
 
     def flag(s):
         return s.lower() in ("true", "1", "yes")
@@ -244,6 +278,10 @@ def main(argv=None):
             for P in sweep["P"]:
                 for Ne in sweep["Ne"]:
                     run(Re=Re, Ra=Ra, P=P, N_e=Ne, **opts)
+    if opts["backend"] == "mesh" and dist.is_initialized() and not started:
+        # leaving with a gloo group alive can abort at interpreter exit
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ field ``.npz`` found (re)writes its compact ``<title>.stats.json`` sidecar
 directory a first column names each row's directory, so two packages' runs
 of one configuration sit side by side.
 
-Usage: ``python -m sem_tpu_torch.study.summarize [dir ...]``
-(default ``Boussinesq_study_torch``)
+Usage: ``python -m sem_tpu_torch.study.summarize [dir ...] [-device cpu]``
+(default ``Boussinesq_study_torch``; the anchors are evaluated on the card
+unless ``-device cpu`` asks for the CPU)
 """
 import glob
 import json
@@ -37,10 +38,10 @@ def parse_title(name):
 
 
 def centerline_anchors(u_e, v_e, P, N_e, Re=1e3, Pr=0.71, L=1.0, n=2001,
-                       device="cpu"):
+                       device="cuda"):
     """(u_max·RePr on x=L/2, v_max·RePr on y=L/2) from element-scattered
     velocity fields (the study's ``.npz`` layout), evaluated on ``device``
-    (the CPU by default): the values the de Vahl Davis (1983) benchmark
+    (the card by default): the values the de Vahl Davis (1983) benchmark
     reports (34.73 / 68.59 at Ra=1e5, 64.63 / 219.36 at Ra=1e6); at high Ra
     the domain maxima lie off the centerlines."""
     from sem_tpu_torch.interp import PointEvaluator
@@ -64,8 +65,9 @@ def centerline_anchors(u_e, v_e, P, N_e, Re=1e3, Pr=0.71, L=1.0, n=2001,
             float(np.max(np.abs(v_line))) * Re * Pr)
 
 
-def row_from_npz(f):
-    """Full-accuracy row from a field .npz; refreshes its .stats.json."""
+def row_from_npz(f, device="cuda"):
+    """Full-accuracy row from a field .npz; refreshes its .stats.json.  The
+    centerline anchors are evaluated on ``device``."""
     name = os.path.basename(f)[:-4]
     cfg = parse_title(name)
     if cfg is None:
@@ -78,7 +80,7 @@ def row_from_npz(f):
     if Ra > 1.1e4:
         # the domain u-max exceeds the centerline u-max at high Ra
         u_anchor, v_anchor = centerline_anchors(u_e, v_e, P, Ne, Re=Re,
-                                                Pr=Pr)
+                                                Pr=Pr, device=device)
         kind = "centerline"
     else:
         u_anchor = float(np.abs(u_e).max()) * Re * Pr
@@ -93,8 +95,8 @@ def row_from_npz(f):
     return stats
 
 
-def rows_of(d):
-    """``{title: stats}`` of one output directory."""
+def rows_of(d, device="cuda"):
+    """``{title: stats}`` of one output directory (anchors on ``device``)."""
     stats_by_title = {}
     # sidecars first (the durable record) ...
     for f in sorted(glob.glob(os.path.join(d, "*.stats.json"))):
@@ -108,15 +110,26 @@ def rows_of(d):
     for f in sorted(glob.glob(os.path.join(d, "*.npz"))):
         if f.endswith(".ckpt.npz"):  # mid-solve checkpoint, not a result
             continue
-        s = row_from_npz(f)
+        s = row_from_npz(f, device)
         if s is not None:
             stats_by_title[os.path.basename(f)[:-4]] = s
     return stats_by_title
 
 
-def main(*dirs):
-    dirs = dirs or (OUTDIR,)
-    rows = [(d, s) for d in dirs for s in rows_of(d).values()]
+def main(*args):
+    """``args``: the directories, and ``-device <name>`` (``cuda`` by
+    default; no card ends the process unless ``-device cpu``)."""
+    from sem_tpu_torch.utils import cli_device
+
+    args = list(args)
+    name = "cuda"
+    if "-device" in args:
+        i = args.index("-device")
+        name = args[i + 1]
+        del args[i:i + 2]
+    device = cli_device(name)
+    dirs = tuple(args) or (OUTDIR,)
+    rows = [(d, s) for d in dirs for s in rows_of(d, device).values()]
     rows.sort(key=lambda r: (r[1]["Re"], r[1]["Ra"], r[1]["P"], r[1]["Ne"],
                              r[1]["mode"], r[0]))
     lead = "| dir " if len(dirs) > 1 else ""

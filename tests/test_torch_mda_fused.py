@@ -5,6 +5,7 @@ preconditioner and the on-device JNK windows (``device_krylov=True``) of
 ``sem_tpu.coupling.mda``, which these tests run as its own tests do (on the
 CPU, the environment switches set explicitly).  ``device="cpu"`` throughout;
 tolerances are stated per test."""
+import json
 import os
 import socket
 import subprocess
@@ -379,7 +380,7 @@ def test_krylov_econ_fused_spans(monkeypatch, capsys):
 
 
 _GROUP_WORKER = """
-import sys
+import json, sys
 sys.path.insert(0, {root!r})
 import torch
 torch.set_num_threads(1)
@@ -391,12 +392,13 @@ quick = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=3, N_ex_cd=6, N_ey_cd=6,
              P_ns=3, N_ex_ns=6, N_ey_ns=6, iprint=False, device="cpu")
 with use_group(group):
     for opt in ("device_krylov", "fused"):
-        try:
-            build_coupled(1.0, 1.0, mode="JNK", **{{opt: True}}, **quick)
-        except NotImplementedError as err:
-            print("RAISED", opt, group.backend, err, flush=True)
-    build_coupled(1.0, 1.0, mode="JNK", **quick)
-    print("HOST_PATH_BUILT", flush=True)
+        _, _, mda = build_coupled(1.0, 1.0, mode="JNK", **{{opt: True}},
+                                  **quick)
+        s = mda.solve()
+        res = float(torch.linalg.vector_norm(mda._residuals(s)))
+        print("SOLVED", opt, group.backend, json.dumps(dict(
+            stats=mda.stats.as_list(), gmres_iters=mda.stats.gmres_iters,
+            ok=bool(res <= mda.atol_nonlin))), flush=True)
 import torch.distributed as dist
 dist.barrier()
 dist.destroy_process_group()
@@ -405,8 +407,9 @@ dist.destroy_process_group()
 
 def test_group_raises_naming_item_6(tmp_path):
     """Under a two-rank gloo group, ``device_krylov=True`` and
-    ``fused=True`` raise ``NotImplementedError`` naming ROADMAP item 6;
-    the host FGMRES still builds."""
+    ``fused=True`` both build and solve QUICK JNK at P3 6×6 (the
+    residual within atol), with the same stats and coupled GMRES
+    iterations in both ranks."""
     with socket.socket() as so:
         so.bind(("127.0.0.1", 0))
         port = so.getsockname()[1]
@@ -425,13 +428,16 @@ def test_group_raises_naming_item_6(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+    solved = []
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
-        raised = [ln for ln in out.splitlines() if ln.startswith("RAISED")]
-        assert len(raised) == 2, out
-        assert all("gloo" in ln and "ROADMAP deferred item 6" in ln
-                   for ln in raised), out
-        assert "HOST_PATH_BUILT" in out
+        lines = [ln.split(" ", 3) for ln in out.splitlines()
+                 if ln.startswith("SOLVED")]
+        assert [ln[1:3] for ln in lines] == [["device_krylov", "gloo"],
+                                             ["fused", "gloo"]], out
+        solved.append([json.loads(ln[3]) for ln in lines])
+    assert solved[0] == solved[1]
+    assert all(r["ok"] for r in solved[0]), solved
 
 
 @pytest.mark.cuda

@@ -371,15 +371,22 @@ with use_group(group):
                ptc_gmres_iters=mda.stats.gmres_iters,
                ptc_collectives=dict(COLLECTIVES))
     np.save(f"{out}/ptc_rank{rank}.npy", torch.stack([s.u, s.v]).numpy())
-    # (e) the flexible chunks are not decomposed
+    # (e) the flexible chunks run on the strips
     ns5 = NavierStokesSolver(1.0, 1.0, Re=10.0, Gr=0.0, P=4, N_ex=8, N_ey=4,
                              iprint=[], velo_inner=5, device="cpu")
-    ns5._calc_jacobians(x[:grid.N], x[grid.N:2 * grid.N])
-    try:
-        ns5._get_update(x[:grid.N], x[:grid.N], x[:grid.N])
-        res["flex_under_group"] = "ran"
-    except NotImplementedError as err:
-        res["flex_under_group"] = str(err)
+    xp, yp = (torch.as_tensor(a) for a in ns5.points)
+    ns5._calc_jacobians(torch.sin(np.pi * xp) * torch.sin(np.pi * yp),
+                        xp * (1 - xp) * yp)
+    rhs = ns5._get_dresiduals(xp * (1 - xp) * yp * (1 - yp),
+                              torch.sin(np.pi * xp) * torch.sin(np.pi * yp)
+                              ** 2, torch.cos(np.pi * xp) * yp)
+    reset()
+    ns5._get_update(*rhs)
+    info = ns5.last_schur_info
+    res["flex_under_group"] = dict(
+        converged=bool(info.converged or info.stalled),
+        iterations=int(info.iterations), f64=ns5.f64_fallback_count,
+        collectives=dict(COLLECTIVES))
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(res, f)
 
@@ -503,8 +510,11 @@ def test_two_process_ptc_matches_single_process(two_ranks):
     """(d) ``mode="PTC"`` (``velo_inner=0``) under a two-rank group against
     the port's single-process PTC march: equal MDA stats, coupled GMRES
     iterations within 1, u and v within 1e-6, the same in both ranks, on
-    the strip path.  (e) ``velo_inner=5`` under a group raises the
-    ``NotImplementedError`` that names its ROADMAP item."""
+    the strip path.  (e) A ``velo_inner=5`` linear solve under the group
+    runs on the strips: at a smooth linearization, on the tangent residual
+    of a smooth field, it converges on the mixed path (no f64 rescue), with
+    halo exchanges, strip gathers and all-reduces, the same in both
+    ranks."""
     res, out = two_ranks
     _, _, mda = build_coupled(1.0, 1.0, mode="PTC", device="cpu", **PTC_KW)
     s = mda.solve()
@@ -516,7 +526,11 @@ def test_two_process_ptc_matches_single_process(two_ranks):
         assert x["ptc_stats"] == mda.stats.as_list()
         assert abs(x["ptc_gmres_iters"] - mda.stats.gmres_iters) <= 1
         assert all(n > 0 for n in x["ptc_collectives"].values()), x
-        assert "ROADMAP deferred item 6" in x["flex_under_group"]
+        flex = x["flex_under_group"]
+        assert flex["converged"] and flex["iterations"] > 0, flex
+        assert flex["f64"] == 0, flex
+        assert all(n > 0 for n in flex["collectives"].values()), flex
+    assert res[0]["flex_under_group"] == res[1]["flex_under_group"]
 
 
 def _inner_counts(monkeypatch, fn, cd_cls, ns_cls, **kw):

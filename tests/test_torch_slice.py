@@ -145,9 +145,10 @@ def test_ns_lid_cavity_matches_reference(mixed, atol):
 
 
 def test_unported_options_raise():
-    """What is still unported raises ``NotImplementedError`` and names its
-    ROADMAP item; the Uzawa solver and the ``'mass'``/``'pcd'`` Schur blocks
-    (once ROADMAP item 1) and ``device_krylov=True`` (once item 5) construct."""
+    """Every option of the port constructs: the Uzawa solver and the
+    ``'mass'``/``'pcd'`` Schur blocks (once ROADMAP item 1) and
+    ``device_krylov=True`` (once item 5); an unknown mode raises
+    ``ValueError``."""
     _, ns, _ = build_coupled(1.0, 1.0, mode="JNK", schur_precon="pcd",
                              device="cpu", **QUICK)
     assert ns._schur_precon == "pcd" and ns._fdm_p is not None

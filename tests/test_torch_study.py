@@ -8,6 +8,8 @@ import importlib.util
 import json
 import os
 import pathlib
+import socket
+import subprocess
 import sys
 import time
 
@@ -122,20 +124,78 @@ def test_boussinesq_run_matches_reference(tmp_path, monkeypatch, mode):
 
     lines = []
     monkeypatch.setattr("builtins.print", lambda s: lines.append(s))
-    summarize.main("Boussinesq_study", "torch_out")
+    summarize.main("Boussinesq_study", "torch_out", "-device", "cpu")
     rows = [ln.split("|")[2:] for ln in lines[2:]]
     assert len(rows) == 2
     if mode != "JNK":
         assert rows[0] == rows[1]
 
 
-def test_backend_mesh_raises(tmp_path):
-    """-backend mesh names the ROADMAP item of the port's multi-process
-    path and writes nothing."""
-    with pytest.raises(NotImplementedError, match="deferred item 6"):
-        boussinesq_run.main(["-backend", "mesh", "-device", "cpu",
-                             "-outdir", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+def test_summarize_without_a_card_fails(tmp_path, monkeypatch):
+    """summarize evaluates on the card by default: with no card and no
+    ``-device`` it ends with the no-card error instead of running on the
+    CPU, and ``-device cpu`` runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        summarize.main(str(tmp_path))
+    summarize.main(str(tmp_path), "-device", "cpu")
+
+
+def _study_files(out):
+    """The file names of a study directory and the stats of its run."""
+    names = sorted(os.listdir(out))
+    stats = json.loads((out / next(f for f in names
+                                   if f.endswith(".stats.json"))).read_text())
+    return names, stats
+
+
+def test_backend_mesh_raises(tmp_path, monkeypatch):
+    """-backend mesh (P3 Ne4 JNK, with checkpoints): without the
+    ``SEM_TPU_*`` variables one process runs the single path and writes
+    the files and stats of -backend single; with them, two ranks over gloo
+    (each in a directory of its own, the same relative -outdir) end with
+    the same stats, and rank 0 alone writes the files (its ``.log``
+    included)."""
+    for k in [k for k in os.environ if k.startswith("SEM_TPU_")]:
+        monkeypatch.delenv(k)
+    args = ["-P", "3", "-Ne", "4", "-ckpt", "True", "-device", "cpu"]
+    single = {}
+    for backend in ("single", "mesh"):
+        boussinesq_run.main(args + ["-backend", backend, "-outdir",
+                                    str(tmp_path / backend)])
+        single[backend] = _study_files(tmp_path / backend)
+    assert single["mesh"] == single["single"]
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    procs = []
+    for r in range(2):
+        (tmp_path / f"rank{r}").mkdir()
+        env = dict(os.environ, SEM_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   SEM_TPU_NUM_PROCESSES="2", SEM_TPU_PROCESS_ID=str(r),
+                   PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "sem_tpu_torch.study.boussinesq_run",
+             *args, "-log", "True", "-backend", "mesh", "-outdir", "out"],
+            cwd=tmp_path / f"rank{r}", env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    names, stats = _study_files(tmp_path / "rank0" / "out")
+    title = single["single"][0][0][:-len(".ckpt.npz")]
+    assert names == sorted(single["single"][0] + [title + ".log"])
+    assert stats == single["single"][1]
+    assert not (tmp_path / "rank1" / "out").exists()
+    iters = str(stats["iters"])
+    assert all(iters in out for out in outs), outs
 
 
 def test_adjoint_hi_reads_a_reference_checkpoint(tmp_path, capsys):

@@ -30,14 +30,16 @@ the last line):
    ``device_us``), ``strip_r1_us`` (the device time of B3/B4 on one strip,
    R=1: the same kernel through its row-window entry point, on the same
    inputs) and ``strip_over_whole`` (that over ``device_us``, about 1);
-5. the reference configuration: ``run`` JNK, P=4 8×8, Ra=1e3 — de Vahl Davis
-   anchors u_max·RePr = 3.649 and v_max·RePr = 3.697 within 1%, ≤ 6 Newton
-   iterations;
+5. the reference configuration: ``run`` JNK, P=4 8×8, Ra=1e3, on the
+   entry point's default program (4,356 coupled DOF: the device windows) —
+   de Vahl Davis anchors u_max·RePr = 3.649 and v_max·RePr = 3.697 within
+   1%, ≤ 6 Newton iterations;
 6. the main path at full size: ``build_coupled`` + ``solve`` JNK with NS at
    P=16 64×64 and CD at P=16 32×32, Ra=1e3, from zero, to the coupled RMS
-   tolerance 1e-8 of the reference's p16 study runs; the kernel launch
-   counts are reset just before and read just after, and B1's and B2's
-   must be > 0;
+   tolerance 1e-8 of the reference's p16 study runs, pinned to the un-fused
+   host FGMRES (``UNFUSED``: ``fused=False, device_krylov=False``), the
+   witness of that program; the kernel launch counts are reset just before
+   and read just after, and B1's and B2's must be > 0;
 7. kernels B3/B4 (B1/B2 on row strips) at P=4 8×8, P=16 32×32 and P=16
    64×64 with R = 1, 2 and 4 strips in this process, each strip's halo cut
    from the full field: the concatenated strips against the plain strip
@@ -49,34 +51,35 @@ the last line):
    main-path shape P=16 32×32: the measurements of phase 4 but
    ``strip_r1_us`` (the library operator is the strip's rows against the
    haloed strip's columns);
-9. the multi-process path at full size: ``run_parallel`` with the
-   configuration of phase 6, two ranks started as two processes of this
-   script (NCCL with one card per rank where there are two cards, gloo with
-   both ranks on cuda:0 otherwise).  Counts are reset just before and read
+9. the multi-process path at full size: ``run_parallel`` with the configuration
+   of phase 6 (pinned as phase 6 is), two ranks started as two processes of
+   this script (NCCL with one card per rank where there are two cards, gloo
+   with both ranks on cuda:0 otherwise).  Counts are reset just before and read
    just after; in each rank B3's and B4's must be > 0 and B1's and B2's 0
-   (every f32 matvec went to the strips), the residual must meet atol and
-   the u-anchor 3.6531 ± 1e-3.  Rank 0 then times one halo exchange, one
-   full-field all-gather and one all-reduce at the NS chunk's shapes.  Each
-   rank then runs three more programs under the group, the counts reset
-   before each: (9b) ``run_parallel(..., velo_inner=5)`` on phase 6's
-   grids, whose B4 launches per coupled GMRES iteration must exceed phase
-   9's; (9c) ``fused=True`` on the same grids (``build_coupled`` under the
-   group, to keep the MDA): the first wall (the graph capture included), a
-   warm wall, and the collectives of one replayed fused step, which must be
-   0; (9d) ``run_parallel(..., device_krylov=True)`` on phase 23c's grids
-   (NS P=16 32×32 / CD P=16 16×16, RMS 1e-10).  Each must meet its residual
-   and the u-anchor 3.6531 ± 1e-3 with B3 and B4 > 0 and B1 and B2 0 in
-   every rank, and the ranks' stats must be equal.  One line prints rank
-   0's runs beside phase 6's solve, one after phase 23 beside 23a and 23c.
+   (every f32 matvec went to the strips), the residual must meet atol and the
+   u-anchor 3.6531 ± 1e-3.  Rank 0 then times one halo exchange, one full-field
+   all-gather and one all-reduce at the NS chunk's shapes.  Each rank then runs
+   three more programs under the group, the counts reset before each: (9b)
+   ``run_parallel(..., velo_inner=5)`` on phase 6's grids (pinned), whose B4
+   launches per coupled GMRES iteration must exceed phase 9's; (9c)
+   ``fused=True`` on the same grids (``build_coupled`` under the group, to keep
+   the MDA): the first wall (the graph capture included), a warm wall, and the
+   collectives of one replayed fused step, which must be 0; (9d)
+   ``run_parallel(..., device_krylov=True)`` on phase 23c's grids (NS P=16
+   32×32 / CD P=16 16×16, RMS 1e-10).  Each must meet its residual and the
+   u-anchor 3.6531 ± 1e-3 with B3 and B4 > 0 and B1 and B2 0 in every rank, and
+   the ranks' stats must be equal.  One line prints rank 0's runs beside phase
+   6's solve, one after phase 23 beside 23a and 23c.
 
-10. ``solve_continued`` at full width (the grids and tolerance of phase 6),
-    once with the default halving ladder P4→P8→P16 and once with
+10. ``solve_continued`` at full width (the grids, tolerance and pinned program
+    of phase 6), once with the default halving ladder P4→P8→P16 and once with
     ``ladder=[(4,4),(16,16)]``: per level the build wait (what the worker
     thread did not hide), the solve wall and the stats; the total wall beside
     phase 6's direct wall; B1's and B2's launches must be > 0, the residual
     meet atol and the u-anchor 3.6531 ± 1e-3;
 11. pseudo-transient continuation at full width: ``build_coupled(mode="PTC")``
-    on the same grids at Ra=1e5, from zero, coupled RMS 1e-8: steps, stats,
+    on the same grids at Ra=1e5, from zero, coupled RMS 1e-8, pinned to the
+    un-fused host program as phases 12 and 13 are: steps, stats,
     coupled GMRES iterations, final Δt, wall, the host time inside the two
     disciplines' ``solve_linear``, B1/B2 launches (> 0); the residual must
     meet atol and the centerline anchors u_max·RePr (on x=1/2) and
@@ -119,14 +122,14 @@ the last line):
     beside that of phase 4's hand-built library operator.
 
 17. profile of the main path: one warm north-star solve (phase 6's
-    configuration, a fresh ``build_coupled``) inside
+    configuration and pinned program, a fresh ``build_coupled``) inside
     ``sem_tpu_torch.utils.profiling.trace`` (``torch.profiler``, CPU and CUDA
     activities): the five device operations with the most device time and
     their shares of it, B1's and B2's shares, the device-busy share of the
     wall; the trace goes to ``build/sem_tpu_torch/trace`` (not brought back:
     tens of MB);
 18. the implicit adjoint at full width: phase 6's state tightened to
-    ``mtol_nonlin=1e-10`` (warm start), then
+    ``mtol_nonlin=1e-10`` (warm start, pinned as phase 6), then
     ``sem_tpu_torch.coupling.implicit.gradients`` of the reference's loss
     ``sum(u² + v²)`` with respect to Re, Ra, Pr at the defaults
     (``inner_rtol=1e-4``, ``max_basis_gb=0.5``): the outer and inner
@@ -176,18 +179,31 @@ the last line):
     eager twins on the same inputs: the largest differences in V, Z, H, g
     and the residual, ≤ 1e-12 relative; (c) ``device_krylov=True`` on NS
     P=16 32×32 / CD P=16 16×16 (855,556 DOF) beside the host JNK solve of
-    the same grids, both to the coupled RMS 1e-10: walls, windows, stats, GMRES iterations, launches of
-    the whole solve and inside the windows (B1-B4 all 0 there), the
-    residual within atol and the u-anchor within 1e-3 of the host solve's;
+    the same grids (pinned: ``UNFUSED``), both to the coupled RMS 1e-10:
+    walls, windows, stats, GMRES iterations, launches of the whole solve and
+    inside the windows (B1-B4 all 0 there), the residual within atol and the
+    u-anchor within 1e-3 of the host solve's;
     (d) phase 11's march with ``fused=True`` beside phase 11's: steps,
     stats, launches (B1/B2 > 0), wall and phase 11's anchors.
+24. ``defaults``: the entry points with no program argument, as a user
+    calls them: ``run`` and ``build_coupled`` at the reference P4 8×8 and
+    ``build_coupled`` at phase 23c's grids and at the north star.  Each line
+    prints the coupled DOF, the program the MDA took (``device_krylov``,
+    ``fused``) and the reference's rule (the device windows up to
+    ``DEVICE_KRYLOV_MAX_DOF`` = 10⁶ DOF, the fused host FGMRES above), the
+    build and solve walls, stats, coupled GMRES iterations and launches.
+    The choice must be the rule's and fused, every residual within atol; at
+    P4 8×8 ``run``'s stats those of ``build_coupled`` and phase 5's anchors;
+    at 23c's grids and the north star the stats, GMRES iterations and
+    launches those of the pinned run of the same program in this call (23c
+    device, 23a fused) and the u-anchor 3.6531 ± 1e-3.
 
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
 ``python3 chip_smoke.py --parallel`` phase 9 (with 9b-9d) alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
 solve for the warm-up and the state), ``python3 chip_smoke.py --drivers``
-phase 19 and then phases 20-22, ``python3 chip_smoke.py --krylov`` phases
-6, 11 and 23.
+phase 19 and then phases 20-22 (the examples and CLIs on their default
+programs), ``python3 chip_smoke.py --krylov`` phases 6, 11, 23 and 24.
 
 Then the wall of every phase and the total; a JSON line with one entry per
 kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
@@ -195,7 +211,7 @@ kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
 phases 10–12, 14–15, 18, 19's march, 20–22 (rank 0's for the parallel
-example), 23 and 9b–9d (rank 0's); as the last line
+example), 23, 24 and 9b–9d (rank 0's); as the last line
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -218,6 +234,15 @@ NORTH_STAR = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=16, N_ex_cd=32, N_ey_cd=32,
                   P_ns=16, N_ex_ns=64, N_ey_ns=64, mode="JNK",
                   mtol_nonlin=1e-8, iprint=False)
 RANKS = 2            # phase 9
+# the un-fused host FGMRES with the adaptive block-Jacobi sweep: the program
+# that phases 6, 9 (and 9b), 10-13, 17, 18 and 23c's host side are pinned
+# to, so that each stays the witness of one program now that the entry
+# points take the reference's choice by problem size (phase 24)
+UNFUSED = dict(fused=False, device_krylov=False)
+# the reference's rule that phase 24 holds the port's default choice to:
+# the device windows up to this many coupled DOF (sem_tpu's default
+# SEM_TPU_DEVICE_KRYLOV_MAX_DOF), the fused host FGMRES above
+DEVICE_KRYLOV_MAX_DOF = 1_000_000
 # phases 9d and 23c: the device windows' grids and tolerance
 DEVICE_GRIDS = dict(NORTH_STAR, N_ex_ns=32, N_ey_ns=32, N_ex_cd=16,
                     N_ey_cd=16, mtol_nonlin=1e-10)
@@ -650,7 +675,8 @@ def main():
 
     # ---- 6. the main path at full size ----
     t0 = time.perf_counter()
-    cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR,
+                                **UNFUSED)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -762,6 +788,9 @@ def main():
 
     # ---- 23. the fused and on-device coupled Krylov programs ----
     by_path.update(krylov_phase(smi, walls, beside))
+
+    # ---- 24. the entry points' defaults beside phase 23's pinned runs ----
+    by_path.update(defaults_phase(smi, walls, beside))
     for path, run in zip(("parallel_velo_inner", "parallel_fused",
                           "parallel_device_krylov"), r0["runs"].values()):
         by_path[path] = run["launches"]
@@ -861,7 +890,7 @@ def ptc_march(tag, smi, s0=None, **kw):
     """
     from sem_tpu_torch.coupling import build_coupled
 
-    cfg = dict(PTC_RA1E5, **kw)
+    cfg = {**PTC_RA1E5, **UNFUSED, **kw}
     anchors = DE_VAHL_DAVIS[cfg["Ra"]]
     cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **cfg)
     spent = {"cd": 0.0, "ns": 0.0, "ns_inner_its": 0}
@@ -923,6 +952,7 @@ def continuation_phases(smi, direct_s=None, walls=None, beside=None):
     # ---- 10. solve_continued at full width ----
     cont_kw = {k: v for k, v in NORTH_STAR.items()
                if k not in ("P_cd", "P_ns")}
+    cont_kw.update(UNFUSED)
     for tag, ladder_kw in (("halving", dict(levels=2)),
                            ("two_level", dict(ladder=[(4, 4), (16, 16)]))):
         log = io.StringIO()
@@ -999,7 +1029,7 @@ def continuation_phases(smi, direct_s=None, walls=None, beside=None):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     budget = 0.3 * wall11
     _, _, mda = build_coupled(1.0, 1.0, device="cuda", checkpoint_path=path,
-                              time_budget_s=budget, **PTC_RA1E5)
+                              time_budget_s=budget, **PTC_RA1E5, **UNFUSED)
     try:
         mda.solve()
     except RuntimeError as err:
@@ -1141,7 +1171,7 @@ def krylov_phase(smi, walls, beside):
     # both residuals within atol
     grids = DEVICE_GRIDS
     runs = {}
-    for tag, kw in (("host", {}), ("device", dict(device_krylov=True))):
+    for tag, kw in (("host", UNFUSED), ("device", dict(device_krylov=True))):
         _, _, mda = build_coupled(1.0, 1.0, device="cuda", **grids, **kw)
         inside = dict.fromkeys(kernels.LAUNCHES, 0)
         windows = [0]
@@ -1192,9 +1222,72 @@ def krylov_phase(smi, walls, beside):
     return by_path
 
 
+def defaults_phase(smi, walls, beside):
+    """Phase 24 (module docstring): ``run`` and ``build_coupled`` with no
+    program argument at the reference P4 8×8, at ``DEVICE_GRIDS`` and at
+    the north star, beside phase 23's pinned runs of the same programs
+    (``beside``).  Returns the kernel launch counts by path; any failed
+    requirement raises."""
+    import numpy as np
+    from sem_tpu_torch.coupling import build_coupled, run
+
+    by_path = {}
+    xp, yp = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101),
+                         indexing="ij")
+    p4 = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=4, N_ex_cd=8, N_ey_cd=8,
+              P_ns=4, N_ex_ns=8, N_ey_ns=8, mode="JNK", iprint=False)
+    (_, u, v, _, run_stats), n_run, wall_run = _counted(lambda: run(
+        (xp, yp), 1.0, 1.0, return_state=True, device="cuda", **p4))
+    umax, vmax = float(np.max(u)) * 710.0, float(np.max(v)) * 710.0
+    for tag, cfg, pinned in (("p4_8x8", p4, None),
+                             ("device_grids", DEVICE_GRIDS, "device"),
+                             ("north_star", NORTH_STAR, "fused")):
+        t0 = time.perf_counter()
+        _, _, mda = build_coupled(1.0, 1.0, device="cuda", **cfg)
+        build = time.perf_counter() - t0
+        s, n, wall = _counted(mda.solve)
+        finite, resid = _residual(mda, s)
+        u_anchor = float(s.u.abs().max()) * 710.0
+        rule = mda.DOF <= DEVICE_KRYLOV_MAX_DOF
+        by_path[f"defaults_{tag}"] = n
+        r = dict(stats=mda.stats.as_list(), gmres_iters=mda.stats.gmres_iters,
+                 launches=n)
+        ok = (mda.device_krylov == rule and mda.fused and finite
+              and resid <= mda.atol_nonlin)
+        extra = {}
+        if tag == "p4_8x8":
+            extra = dict(run_stats=run_stats.as_list(),
+                         run_gmres_iters=run_stats.gmres_iters,
+                         run_launches=n_run, run_s=f"{wall_run:.2f}",
+                         u_anchor=f"{umax:.4f}", v_anchor=f"{vmax:.4f}")
+            ok = (ok and run_stats.as_list() == r["stats"]
+                  and abs(umax - 3.649) / 3.649 < 0.01
+                  and abs(vmax - 3.697) / 3.697 < 0.01
+                  and run_stats.nonlinear_iters <= 6)
+        else:
+            ref = beside[pinned]
+            extra = {f"pinned_{k}": ref[k] for k in r}
+            extra["u_anchor"] = f"{u_anchor:.4f}"
+            ok = (ok and all(r[k] == ref[k] for k in r)
+                  and abs(u_anchor - 3.6531) <= 1e-3)
+        _line("defaults", config=tag, dof=mda.DOF,
+              device_krylov=mda.device_krylov, fused=mda.fused,
+              reference_rule=("device_windows" if rule else "fused_host"),
+              build_s=f"{build:.2f}", solve_s=f"{wall:.2f}", **r, **extra,
+              residual=f"{resid:.3e}", atol=f"{mda.atol_nonlin:.3e}",
+              smi=f"'{smi}'")
+        _require(ok, f"defaults at {tag} failed: device_krylov "
+                     f"{mda.device_krylov} (rule {rule}), fused {mda.fused}, "
+                     f"residual {resid:.3e}, {r}, {extra}")
+        del mda
+    walls.mark("24_defaults")
+    return by_path
+
+
 def krylov_main():
     """``--krylov``: the card's line, the build, phase 6's solve and phase
-    11's march (what phase 23 prints beside its own), then phase 23."""
+    11's march (what phase 23 prints beside its own), then phases 23 and
+    24."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1207,7 +1300,8 @@ def krylov_main():
     smi = _smi_line().splitlines()[0]
     _build.library()
     walls = Walls()
-    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR,
+                              **UNFUSED)
     mda.solve()     # warm-up
     mda.cd_comp.iter_count_solve = mda.ns_comp.iter_count_solve = 0
     s, n, wall = _counted(mda.solve)
@@ -1219,6 +1313,7 @@ def krylov_main():
     beside["ptc"] = ptc_summary(mda11, n11, wall11)
     walls.mark("11_ptc")
     krylov_phase(smi, walls, beside)
+    defaults_phase(smi, walls, beside)
     walls.show()
 
 
@@ -1436,13 +1531,15 @@ def profile_phase(smi, logdir, top=5):
     from sem_tpu_torch.coupling import build_coupled
     from sem_tpu_torch.utils.profiling import trace
 
-    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR,
+                              **UNFUSED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mda.solve()
     torch.cuda.synchronize()
     plain = time.perf_counter() - t0
-    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR,
+                              **UNFUSED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with trace(logdir) as prof:
@@ -1523,7 +1620,7 @@ def adjoint_phase(smi, s6):
     from sem_tpu_torch.coupling import implicit
     from sem_tpu_torch.utils.profiling import PhaseTimer
 
-    cfg = dict(NORTH_STAR, mtol_nonlin=1e-10)
+    cfg = dict(NORTH_STAR, mtol_nonlin=1e-10, **UNFUSED)
     params = {k: cfg[k] for k in ("Re", "Ra", "Pr")}
     t0 = time.perf_counter()
     cd, ns, mda = build_coupled(1.0, 1.0, device="cuda", **cfg)
@@ -1875,9 +1972,14 @@ def study_cli_phase(smi, study):
     m = re.search(r"RESULT-direct .*: ([0-9.]+)s iters=(\d+) resweeps=(\d+) "
                   r"resweep_share=" + num, out)
     _require(m, "krylov_econ printed no RESULT-direct line")
-    _line("krylov_econ_direct", solve_s=m.group(1), ns_f32_iters=m.group(2),
+    # the study counts the NS chunks of the block-Jacobi sweep; the fused
+    # preconditioner's chunks, which its default program runs, it does not
+    # count (nor does the JAX script)
+    its = int(m.group(2))
+    _line("krylov_econ_direct", solve_s=m.group(1), ns_f32_iters=its,
           resweeps=m.group(3), resweep_share=m.group(4),
-          ms_per_it=f"{1e3 * float(m.group(1)) / max(int(m.group(2)), 1):.3f}",
+          ms_per_it=(f"{1e3 * float(m.group(1)) / its:.3f}" if its
+                     else "not_counted"),
           launches=n, smi=f"'{smi}'")
     _require(n[B1] > 0 and n[B2] > 0, f"krylov_econ: launches {n}")
 
@@ -1920,7 +2022,8 @@ def adjoint_main():
     smi = _smi_line()
     _build.library()
     walls = Walls()
-    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR)
+    _, _, mda = build_coupled(1.0, 1.0, device="cuda", **NORTH_STAR,
+                              **UNFUSED)
     s6 = mda.solve()
     walls.mark("6_north_star")
     adjoint_phases(smi.splitlines()[0], walls, s6)
@@ -2143,7 +2246,7 @@ def parallel_programs(tag, dev, group, pts, mda9):
     # ---- 9b. the flexible chunks on the strips ----
     t0 = reset()
     *_, s, stats = run_parallel(pts, 1.0, 1.0, return_state=True, device=dev,
-                                velo_inner=5, **NORTH_STAR)
+                                velo_inner=5, **NORTH_STAR, **UNFUSED)
     runs["velo_inner"] = result("9b_velo_inner", s, stats, mda9,
                                 time.perf_counter() - t0)
 
@@ -2217,7 +2320,7 @@ def rank_main(rank: int, world: int, port: int):
     _, u, v, _, stats = run_parallel(
         pts, 1.0, 1.0, Re=1e3, Ra=1e3, Pr=0.71, P_cd=4, N_ex_cd=8, N_ey_cd=8,
         P_ns=4, N_ex_ns=8, N_ey_ns=8, mode="JNK", iprint=False,
-        return_state=True, device=dev)
+        return_state=True, device=dev, **UNFUSED)
     _line(tag, warmup="P4_8x8_JNK", seconds=f"{time.perf_counter() - t0:.2f}",
           stats=stats.as_list(), gmres_iters=stats.gmres_iters)
 
@@ -2228,7 +2331,7 @@ def rank_main(rank: int, world: int, port: int):
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     _, _, _, s, stats = run_parallel(pts, 1.0, 1.0, return_state=True,
-                                     device=dev, **NORTH_STAR)
+                                     device=dev, **NORTH_STAR, **UNFUSED)
     torch.cuda.synchronize(dev)
     t_run = time.perf_counter() - t0
     launches, collectives = dict(LAUNCHES), dict(COLLECTIVES)
@@ -2303,7 +2406,8 @@ if __name__ == "__main__":
     ap.add_argument("--krylov", action="store_true",
                     help="instead of the smoke run: phases 6 and 11, then "
                          "phase 23 (the fused and on-device coupled Krylov "
-                         "programs)")
+                         "programs) and phase 24 (the entry points' "
+                         "defaults)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead of the smoke run: phase 9 alone (two rank "
                          "processes: run_parallel and its programs 9b-9d)")

@@ -26,7 +26,7 @@ torch.backends.cudnn.allow_tf32 = False
 from sem_tpu_torch import gll  # noqa: E402
 from sem_tpu_torch.mesh import Grid2D  # noqa: E402
 from sem_tpu_torch import operators  # noqa: E402
-from sem_tpu_torch.krylov import gmres  # noqa: E402
+from sem_tpu_torch.krylov import cg, gmres  # noqa: E402
 from sem_tpu_torch.fdm import FDM2D  # noqa: E402
 from sem_tpu_torch.models.convection_diffusion import (  # noqa: E402
     ConvectionDiffusionSolver)
@@ -34,5 +34,5 @@ from sem_tpu_torch.models.navier_stokes import NavierStokesSolver  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["gll", "Grid2D", "operators", "gmres", "FDM2D",
+__all__ = ["gll", "Grid2D", "operators", "gmres", "cg", "FDM2D",
            "ConvectionDiffusionSolver", "NavierStokesSolver"]

@@ -60,7 +60,9 @@ def solve_continued(L_x, L_y, levels: int = 2, state0: CoupledState = None,
         pairs ending at the target order, overriding ``levels`` and the
         halving schedule (e.g. ``[(4, 4), (16, 16)]`` skips the P8 level)
     :param kwargs: forwarded to :func:`build_coupled` (``P_cd``/``P_ns``,
-        ``device``, ...); ``timing=True`` prints per level the build wait
+        ``device``, ``fused``, ``device_krylov``, ...); each level builds its
+        own MDA, so with ``device_krylov=None`` each level picks its program
+        by its own DOF; ``timing=True`` prints per level the build wait
         (what the worker thread did not hide), the solve wall and the stats
     :return: (cd, ns, mda, state) of the finest level
     """
@@ -139,7 +141,8 @@ def solve_ra_continued(L_x, L_y, Ra, decades: int = None,
         fixed-decade ladder
     :param ptc_above: Rayleigh number above which levels switch to PTC
         (``None`` disables the switch)
-    :param kwargs: forwarded to :func:`build_coupled`
+    :param kwargs: forwarded to :func:`build_coupled` (``fused`` and
+        ``device_krylov`` unchanged: each level picks its own program)
     :return: (cd, ns, mda, state) at the target Ra
     """
     def use_ptc(Ra_k):
@@ -178,7 +181,7 @@ def build_coupled(L_x: float, L_y: float,
                   mtol_internal=1e-13, mtol_precon=1e-4, iprint=True,
                   device_krylov=None, forcing=1e-3, mtol_subsolve=1e-6,
                   velo_inner=0, schur_precon=None, device="cuda",
-                  fused=False, **mda_kwargs):
+                  fused=None, **mda_kwargs):
     """Construct solvers, components and the MDA for the Boussinesq problem.
 
     Parameter names and defaults are those of ``sem_tpu``'s
@@ -192,8 +195,10 @@ def build_coupled(L_x: float, L_y: float,
     function has no ``linear_solver`` argument (an Uzawa NS block is built
     by hand: the two solvers, their components, :class:`BoussinesqMDA`).
     ``device_krylov`` and ``fused`` choose the program of the coupled linear
-    solves (:class:`BoussinesqMDA`); ``fused=True`` is the reference's
-    default host path, ``False`` keeps the un-fused host FGMRES.
+    solves (:class:`BoussinesqMDA`); their defaults (``None``) make the
+    reference's choice: the device windows up to
+    :data:`~sem_tpu_torch.coupling.mda.DEVICE_KRYLOV_MAX_DOF` coupled DOF,
+    else the fused host FGMRES (``fused=False``: the un-fused one).
     """
     cd = ConvectionDiffusionSolver(L_x=L_x, L_y=L_y, Pe=Re * Pr,
                                    P=P_cd, N_ex=N_ex_cd, N_ey=N_ey_cd,
@@ -234,7 +239,7 @@ def run(points_plot: typing.Tuple[np.ndarray, np.ndarray],
         mtol_nonlin=1e-9, AGi=8, AGr=0.8, AGc=0.2,
         mtol_gmres=1e-10, restart=20,
         mtol_internal=1e-13, mtol_precon=1e-4, iprint=True,
-        return_state=False, device_krylov=None, device="cuda", fused=False,
+        return_state=False, device_krylov=None, device="cuda", fused=None,
         velo_inner=0, **mda_kwargs):
     """Solve the coupled Boussinesq problem; return (T, u, v) at plot points
     as NumPy arrays (plus the state and the MDA stats with
@@ -268,7 +273,8 @@ def run_parallel(points_plot, L_x, L_y, *args, devices=None, **kwargs):
     (kernels B3/B4, halo exchanges, all-reduced GMRES), and each of them
     returns the same replicated results; a rank outside ``devices`` returns
     ``None`` without solving.  Pass each rank its own ``device`` (the one
-    ``init_distributed`` returns).
+    ``init_distributed`` returns).  ``fused`` and ``device_krylov`` pass
+    through to :func:`run` unchanged (default: the reference's choice).
     """
     from sem_tpu_torch.parallel import make_group, use_group
 

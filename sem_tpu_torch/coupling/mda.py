@@ -27,18 +27,23 @@ Both Newton modes start with one Gauss-Seidel sweep (the reference's
 ``solve_subsystems=True, max_sub_solves=0``).  Tolerances follow the RMS
 convention: absolute tolerance = mtol·√DOF with DOF = 3·N_ns + N_cd.
 
-Two other programs solve the coupled linear systems, as in the reference:
+The coupled linear systems are solved by one of three programs, chosen as
+the reference chooses them:
 
-* ``fused=True`` (the reference's default ``SEM_TPU_FG_FUSED=1`` with
-  ``SEM_TPU_FUSED_PC=1``): the host FGMRES takes one fused step per
+* ``device_krylov`` (default: coupled DOF ≤ :data:`DEVICE_KRYLOV_MAX_DOF`):
+  the JNK (and, up to :data:`PTC_DEVICE_MAX_DOF`, the PTC) linear solves run
+  as warm-started windows of :func:`sem_tpu_torch.krylov.fgmres` with
+  float64 nested discipline solves (:meth:`BoussinesqMDA._fgmres_device`);
+* otherwise the host FGMRES, by default fused (the reference's
+  ``SEM_TPU_FG_FUSED=1`` with ``SEM_TPU_FUSED_PC=1``): one fused step per
   iteration (coupled matvec, flexible-basis write, f32 CGS2 and the Givens
   recurrence on the device; on a CUDA device captured once as a CUDA graph)
-  and reads back one scalar, and its preconditioner is the fixed two-round
-  policy (:meth:`BoussinesqMDA._build_pc_fused`);
-* ``device_krylov=True``: the JNK (and, up to :data:`PTC_DEVICE_MAX_DOF`,
-  the PTC) linear solves run as warm-started windows of
-  :func:`sem_tpu_torch.krylov.fgmres` with float64 nested discipline solves
-  (:meth:`BoussinesqMDA._fgmres_device`).
+  that reads back one scalar, preconditioned by the fixed two-round policy
+  (:meth:`BoussinesqMDA._build_pc_fused`) where both solvers are mixed
+  precision and the NS solver is ``'coupled'``, else by the block-Jacobi
+  sweep;
+* ``fused=False``: the un-fused host FGMRES with the adaptive block-Jacobi
+  sweep (the reference with both variables ``0``).
 
 Under a process group (:func:`sem_tpu_torch.parallel.use_group`) every
 program runs.  The coupled vectors, the fused step and the device windows'
@@ -71,6 +76,9 @@ __all__ = ["BoussinesqMDA", "MDAStats", "CoupledState"]
 #: the reference's default ``SEM_TPU_FUSED_WINDOW``; windows are
 #: warm-started, so the size bounds a window without changing convergence
 FUSED_WINDOW = 10
+#: largest coupled DOF at which ``device_krylov=None`` picks the device
+#: windows: the reference's default ``SEM_TPU_DEVICE_KRYLOV_MAX_DOF``
+DEVICE_KRYLOV_MAX_DOF = 1_000_000
 #: largest coupled DOF at which PTC takes the device windows: the
 #: reference's default ``SEM_TPU_PTC_DEVICE_MAX_DOF``
 PTC_DEVICE_MAX_DOF = 150_000
@@ -406,14 +414,16 @@ class BoussinesqMDA:
     :param device_krylov: ``True``: the JNK linear solves (and PTC's, up
         to :data:`PTC_DEVICE_MAX_DOF` coupled DOF) run as warm-started
         windows of :func:`sem_tpu_torch.krylov.fgmres` with float64 nested
-        discipline solves (:meth:`_fgmres_device`); ``None`` (default) and
-        ``False``: the host FGMRES.  Unlike the reference, ``None`` never
-        picks the windows by problem size
-    :param fused: the host FGMRES takes the fused programs of
-        :meth:`_fg_fused` (one fused step and one scalar read per iteration,
-        CUDA graphs on a CUDA device) and the fixed two-round preconditioner
-        of :meth:`_build_pc_fused`: the reference's default
-        (``SEM_TPU_FG_FUSED=1``, ``SEM_TPU_FUSED_PC=1``)
+        discipline solves (:meth:`_fgmres_device`); ``False``: the host
+        FGMRES; ``None`` (default): the windows up to
+        :data:`DEVICE_KRYLOV_MAX_DOF` coupled DOF, as in the reference
+    :param fused: ``True`` or ``None`` (default): the host FGMRES takes the
+        fused programs of :meth:`_fg_fused` (one fused step and one scalar
+        read per iteration, CUDA graphs on a CUDA device) and, where
+        :meth:`_pc_fused` applies, the fixed two-round preconditioner of
+        :meth:`_build_pc_fused`: the reference's default
+        (``SEM_TPU_FG_FUSED=1``, ``SEM_TPU_FUSED_PC=1``); ``False``: the
+        un-fused host FGMRES with the adaptive block-Jacobi sweep
     :param ptc_dt0/ptc_growth/ptc_dt_max: initial pseudo-time step, SER
         growth cap per step and Δt ceiling (PTC)
     :param ptc_forcing: forcing factor of the PTC steps' coupled GMRES
@@ -451,7 +461,7 @@ class BoussinesqMDA:
                  precon: str = None, checkpoint_path: str = None,
                  checkpoint_every: int = 5, checkpoint_config: dict = None,
                  time_budget_s: float = None, time_deadline: float = None,
-                 fused: bool = False):
+                 fused: bool = None):
         if mode not in ("GS", "NJ", "JNK", "PTC"):
             raise ValueError("Unknown method")
         if precon is None:
@@ -481,8 +491,10 @@ class BoussinesqMDA:
         self.ptc_dt_max = float(ptc_dt_max)
         self.ptc_forcing = float(ptc_forcing)
         self.iprint = iprint
+        if device_krylov is None:
+            device_krylov = self.DOF <= DEVICE_KRYLOV_MAX_DOF
         self.device_krylov = bool(device_krylov)
-        self.fused = bool(fused)
+        self.fused = True if fused is None else bool(fused)
         self._fg_graphs = None   # _CapturedFG, made on the first CUDA bind
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = int(checkpoint_every)

@@ -170,3 +170,8 @@ class FDM2D:
             return Uint.reshape(batch + (grid.N,))
         Rb[..., x0:x1, y0:y1] = Uint
         return Rb.reshape(batch + (grid.N,))
+
+    def solve(self, r: torch.Tensor) -> torch.Tensor:
+        """Solve the masked system for RHS ``r`` (flat, or stacked batch)
+        with the precomputed diagonal: ``self(r)``."""
+        return self(r)

@@ -17,8 +17,8 @@ from sem_tpu_torch import gll
 from sem_tpu_torch.mesh import Grid2D, x2xi
 from sem_tpu_torch.utils.tensors import device_const
 
-__all__ = ["eval_matrix_1d", "PointEvaluator", "transfer_matrices",
-           "apply_transfer"]
+__all__ = ["eval_matrix_1d", "PointEvaluator", "eval_field",
+           "transfer_matrices", "apply_transfer"]
 
 
 def eval_matrix_1d(P: int, N_e: int, d: float, xq: np.ndarray) -> np.ndarray:
@@ -54,6 +54,12 @@ class PointEvaluator:
         Ex = device_const(self, "Ex", lambda: self._Ex, f.dtype, f.device)
         Ey = device_const(self, "Ey", lambda: self._Ey, f.dtype, f.device)
         return (Ex @ U @ Ey.T).cpu().numpy()
+
+
+def eval_field(grid: Grid2D, f: torch.Tensor, points_plot) -> np.ndarray:
+    """One-shot evaluation of the field ``f`` at the points (builds the
+    evaluator; prefer :class:`PointEvaluator` for repeated use)."""
+    return PointEvaluator(grid, points_plot)(f)
 
 
 @functools.lru_cache(maxsize=None)

@@ -223,7 +223,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, *, atol: float,
           restart: int = 30, maxiter: int = 1000,
           precon: Optional[Callable] = None, return_hist: bool = False,
-          basis_dtype=None, group=None):
+          basis_dtype=None, dgks_eta: float = None, group=None):
     """Restarted GMRES(m) with right preconditioning.
 
     Same algorithm as ``sem_tpu.krylov.gmres``: live-chunk block-MGS with a
@@ -247,6 +247,10 @@ def gmres(matvec: Callable, b: torch.Tensor,
         test reads anyway, so the history costs no extra host read
     :param basis_dtype: storage dtype of the basis (default: ``b.dtype``);
         arithmetic stays in the working dtype
+    :param dgks_eta: DGKS reorthogonalization threshold (None = the
+        dtype-dependent default: :data:`DGKS_ETA` for f32/bf16,
+        :data:`DGKS_ETA_F64` for f64); each triggered resweep doubles that
+        iteration's basis traffic
     :param group: decompose over the ranks of this group
         (:mod:`sem_tpu_torch.parallel`): ``b``, ``x0``, the result and what
         ``matvec``/``precon`` take and return are this rank's strips; every
@@ -261,7 +265,8 @@ def gmres(matvec: Callable, b: torch.Tensor,
     n = b.shape[0]
     dtype = b.dtype
     lowp = dtype in _LP_DTYPES
-    eta = DGKS_ETA if lowp else DGKS_ETA_F64
+    eta = ((DGKS_ETA if lowp else DGKS_ETA_F64) if dgks_eta is None
+           else float(dgks_eta))
     bdt = dtype if basis_dtype is None else basis_dtype
     eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
     cchunk = min(_CHUNK, m + 1)
@@ -321,7 +326,8 @@ def gmres(matvec: Callable, b: torch.Tensor,
 def fgmres(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None, *, atol: float,
            restart: int = 20, maxiter: int = 1000, precon: Callable,
-           return_hist: bool = False, basis_dtype=None, group=None):
+           return_hist: bool = False, basis_dtype=None,
+           dgks_eta: float = None, group=None):
     """Flexible GMRES(m): the right preconditioner may vary per application
     (it may contain inner Krylov solves), so the preconditioned vectors ``Z``
     are stored and the solution update uses them (Saad's FGMRES).
@@ -331,8 +337,9 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     Givens recurrence, in-cycle plateau exit for f32/bf16 and true-residual
     stall rule.  ``basis_dtype`` is the storage dtype of the Arnoldi basis
     ``V`` only: ``Z`` holds the solution update and stays in the working
-    dtype.  ``atol`` may be a 0-d tensor, and ``group`` decomposes the solve
-    over row strips, as in :func:`gmres`.
+    dtype.  ``atol`` may be a 0-d tensor, ``dgks_eta`` sets the DGKS
+    threshold, and ``group`` decomposes the solve over row strips, as in
+    :func:`gmres`.
 
     :return: ``(x, KrylovInfo)``, or ``(x, KrylovInfo, hist)`` with
         ``return_hist`` (see :func:`gmres`)
@@ -342,7 +349,8 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     n = b.shape[0]
     dtype = b.dtype
     lowp = dtype in _LP_DTYPES
-    eta = DGKS_ETA if lowp else DGKS_ETA_F64
+    eta = ((DGKS_ETA if lowp else DGKS_ETA_F64) if dgks_eta is None
+           else float(dgks_eta))
     bdt = dtype if basis_dtype is None else basis_dtype
     eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
     cchunk = min(_CHUNK, m + 1)

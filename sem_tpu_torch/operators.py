@@ -24,7 +24,7 @@ from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.utils.tensors import device_const
 
 __all__ = [
-    "grid_const", "gather", "scatter_sum",
+    "grid_const", "gather", "scatter_sum", "grid_form", "flat_form",
     "apply_mass", "apply_stiffness", "apply_grad_x", "apply_grad_y",
     "apply_convection", "apply_system", "apply_coupled_system",
     "conv_diag_x", "conv_diag_y",
@@ -35,6 +35,16 @@ def grid_const(grid: Grid2D, name: str, dtype, device) -> torch.Tensor:
     """The grid's NumPy constant ``name`` as a cached tensor."""
     return device_const(grid, name, lambda: getattr(grid, name), dtype,
                         device)
+
+
+def grid_form(grid: Grid2D, u: torch.Tensor) -> torch.Tensor:
+    """Reshape a flat global vector ``(N,)`` to grid form ``(Ngx, Ngy)``."""
+    return u.reshape(grid.Ngx, grid.Ngy)
+
+
+def flat_form(u: torch.Tensor) -> torch.Tensor:
+    """Reshape a grid-form field back to a flat global vector."""
+    return u.reshape(-1)
 
 
 def _c(grid: Grid2D, name: str, like: torch.Tensor) -> torch.Tensor:

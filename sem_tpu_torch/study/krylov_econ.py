@@ -6,7 +6,10 @@ worst case):
 
 * per-level NS inner-f32 iteration and DGKS resweep counts
   (``KrylovInfo.resweeps``: iterations whose orthogonalization ran the
-  second sweep, which doubles that iteration's basis traffic),
+  second sweep, which doubles that iteration's basis traffic) of the NS
+  solver's ``_get_update`` (the Gauss-Seidel and block-Jacobi sweeps; the
+  fused two-round preconditioner's chunks are not counted, as in the JAX
+  script),
 * warm ladder wall-clock and convergence stats,
 
 under a configurable DGKS threshold η (``--eta``, default
@@ -31,17 +34,24 @@ these functions of the port:
 * ``mda.bgs_rhs``, ``mda.block_jacobi``, ``mda.apply_linear``:
   ``BoussinesqMDA._bgs_rhs``, ``_block_jacobi`` (the coupled
   preconditioner) and ``_apply_linear`` (the coupled matvec);
-* with ``--fused`` (``BoussinesqMDA(fused=True)``): ``mda.fg_start`` and
-  ``mda.fg_step``, the fused host-FGMRES programs that ``_fg_fused`` binds
-  (a CUDA graph replay on the card), and ``mda.pc_fused``, one application
-  of the fused two-round preconditioner that ``_pc_fused`` binds;
+* ``mda.fg_start`` and ``mda.fg_step``, the fused host-FGMRES programs
+  that ``_fg_fused`` binds (a CUDA graph replay on the card), and
+  ``mda.pc_fused``, one application of the fused two-round preconditioner
+  that ``_pc_fused`` binds;
 * ``mda.jnk_cycle``: ``BoussinesqMDA._jnk_window``, one on-device JNK
-  window (``device_krylov=True``; none in this study's solves).
+  window.
+
+The coupled Krylov program is the MDA's default, as in the JAX script: the
+device windows on the levels of at most ``DEVICE_KRYLOV_MAX_DOF`` coupled
+DOF (P4 and P8), the fused host FGMRES above (P16).  ``--fused`` takes the
+fused host FGMRES on every level, ``--unfused`` the un-fused host FGMRES
+with the adaptive block-Jacobi sweep on every level (the two host programs
+the study compares).
 
 Usage::
 
     python -m sem_tpu_torch.study.krylov_econ [--eta X] [--restart N]
-        [--ra 1e3] [--direct] [--fused] [--device cpu]
+        [--ra 1e3] [--direct] [--fused | --unfused] [--device cpu]
 """
 import argparse
 import contextlib
@@ -166,10 +176,18 @@ def main(argv=None):
                     help="single-level p16 solve from zero (no ladder): "
                          "hundreds of f32 iterations, the clean ms/it "
                          "signal")
-    ap.add_argument("--fused", action="store_true",
-                    help="the fused host FGMRES and the two-round "
-                         "preconditioner (BoussinesqMDA(fused=True), the "
-                         "JAX package's default)")
+    program = ap.add_mutually_exclusive_group()
+    program.add_argument("--fused", action="store_true",
+                         help="the fused host FGMRES and the two-round "
+                              "preconditioner on every level "
+                              "(fused=True, device_krylov=False); default: "
+                              "the MDA's own choice, the JAX package's "
+                              "(device windows up to 1e6 coupled DOF, the "
+                              "fused host FGMRES above)")
+    program.add_argument("--unfused", action="store_true",
+                         help="the un-fused host FGMRES with the adaptive "
+                              "block-Jacobi sweep on every level "
+                              "(fused=False, device_krylov=False)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     args = ap.parse_args(argv)
@@ -185,9 +203,13 @@ def _run(args, device):
     from sem_tpu_torch.interp import apply_transfer
     from sem_tpu_torch.utils import sync
 
+    program = (dict(fused=True, device_krylov=False) if args.fused else
+               dict(fused=False, device_krylov=False) if args.unfused else
+               dict(fused=None, device_krylov=None))
     print(f"config: eta={krylov.DGKS_ETA} restart={args.restart or 'auto'} "
-          f"Ra={args.ra:g} fused={args.fused}", flush=True)
-    kw = dict(KW, Ra=args.ra, device=device, fused=args.fused)
+          f"Ra={args.ra:g} fused={program['fused']} "
+          f"device_krylov={program['device_krylov']}", flush=True)
+    kw = dict(KW, Ra=args.ra, device=device, **program)
 
     def share(rs, its):
         return f"({100 * rs / max(its, 1):.0f}%)"

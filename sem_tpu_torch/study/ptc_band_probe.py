@@ -9,11 +9,9 @@ reproduces that system from a run checkpoint (same state, same
 measures the per-iteration contraction rate for candidate preconditioner
 strengths (``velo_inner``) and Δt values, without spending march
 wall-clock on blind production runs.  The checkpoint format is shared, so a
-checkpoint of either package's study works.  The probe runs the un-fused
-host FGMRES (``coupling.mda._fgmres`` without ``fused=``, the program of
-``BoussinesqMDA(fused=False)``), where the JAX script takes its default
-fused one; on the CPU the JAX package's fused and unfused paths give equal
-counts here.
+checkpoint of either package's study works.  The probe runs the host
+FGMRES with the MDA's own host program, as the JAX script does: by default
+the fused step and the two-round preconditioner (``BoussinesqMDA._fg_fused``).
 
 The RHS is the true PTC right-hand side ``-F(x)``: consistent by
 construction (random RHSs lie about preconditioner quality; this one is the
@@ -77,7 +75,9 @@ def probe(ckpt, Ra, P=16, N_e=64, Re=1.e3, Pr=0.71, dts=(0.9,),
                 lambda r: mda._block_jacobi(r, mtol=mda.mtol_precon,
                                             best_effort=True),
                 -F, atol=atol_k, restart=mda.restart, maxiter=its,
-                callback=lambda i, res: hist.append(res))
+                callback=lambda i, res: hist.append(res),
+                fused=(mda._fg_fused(mtol=mda.mtol_precon) if mda.fused
+                       else None))
             res = hist[-1]
             w = min(20, len(hist) - 1)
             rho = (hist[-1] / hist[-1 - w]) ** (1.0 / w) if w > 0 else 1.0

@@ -2,8 +2,8 @@
 the row-norm estimate and ``rowscale_prep`` against ``sem_tpu.krylov``; the
 ``velo_inner`` flexible chunks and the escalation ladder of the NS solver;
 ``solve_continued``, ``solve_ns_continued`` and ``solve_ra_continued``
-against direct solves and against ``sem_tpu`` (host FGMRES, un-fused, the
-algorithm the port implements).  Everything runs with ``device="cpu"``, the
+against direct solves and against ``sem_tpu`` (host FGMRES, un-fused, with
+the port pinned to the same program by ``port_unfused``).  Everything runs with ``device="cpu"``, the
 port on its kernels' plain versions.  Tolerances are stated per test."""
 import re
 
@@ -25,8 +25,9 @@ from sem_tpu_torch.krylov import KrylovInfo
 from sem_tpu_torch.models.navier_stokes import solve_ns_continued
 
 from tests.test_torch_fdm_krylov import _cd_system
-from tests.torch_parity import (_jax_probes, one_torch_thread,  # noqa: F401
-                                rel_err, t32, t64)
+from tests.torch_parity import (UNFUSED, _jax_probes,  # noqa: F401
+                                one_torch_thread, port_unfused, rel_err,
+                                t32, t64)
 
 
 # ------------------------------- krylov.py ------------------------------- #
@@ -286,7 +287,7 @@ def _level_stats(text):
 @pytest.fixture(scope="module")
 def direct_p4():
     cd, ns, mda = build_coupled(1.0, 1.0, P_cd=4, P_ns=4, device="cpu",
-                                **CONT_KW)
+                                **CONT_KW, **UNFUSED)
     return cd, ns, mda, mda.solve()
 
 
@@ -295,7 +296,7 @@ def direct_p4():
                                        dict(levels=3)],
                          ids=["levels1", "explicit", "levels3_floor"])
 def test_solve_continued_matches_direct_and_reference(ladder_kw, direct_p4,
-                                                      capfd):
+                                                      capfd, port_unfused):
     """The configuration of tests/test_coupling.py:211-240.  The continued
     solve reaches the direct solution (u, T within 1e-6) with less
     fine-level work, and its per-level MDA stats equal sem_tpu's; the final
@@ -370,7 +371,7 @@ def test_solve_ns_continued_matches_direct_and_reference():
     assert float(u_t.abs().max()) > 1e-3
 
 
-def test_solve_ra_continued_matches_reference():
+def test_solve_ra_continued_matches_reference(port_unfused):
     """The configuration of tests/test_coupling.py:242-250 (Ra=1e4,
     ``decades=1``): converged to the MDA tolerance at the target Ra, the
     buoyancy-driven flow much stronger than at Ra=1e3 (u_max·RePr > 8), and

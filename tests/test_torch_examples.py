@@ -14,7 +14,7 @@ from sem_tpu_torch.examples import (boussinesq_parallel,
                                     boussinesq_sequential,
                                     convection_diffusion, navier_stokes)
 
-from tests.torch_parity import one_torch_thread  # noqa: F401
+from tests.torch_parity import one_torch_thread, port_unfused  # noqa: F401
 
 
 def test_cd_example_matches_reference(capsys):
@@ -74,10 +74,10 @@ def test_ns_quick_example_matches_reference(mixed, atol, capsys,
 @pytest.mark.parametrize("mode,mixed", [("GS", True), ("GS", False),
                                         ("NJ", True), ("JNK", True)])
 def test_sequential_quick_example_matches_reference(mode, mixed, capsys,
-                                                    monkeypatch):
+                                                    monkeypatch, port_unfused):
     """Heated cavity P4 4×4, each coupling mode: the port's example passes
     its de Vahl Davis check with the stats of ``sem_tpu.coupling.run`` on
-    its host FGMRES (un-fused, the algorithm the port implements) and
+    its host FGMRES (un-fused, both packages pinned to that program) and
     u_max·RePr, v_max·RePr to 1e-6.  On the default mixed path GS's inner
     Newton solves end within one iteration of each other per sweep (the f32
     chunks' spread near the Newton tolerance: 20 against 18 over 9 sweeps);

@@ -243,3 +243,72 @@ def test_cg_matches_reference(precon):
     # the iteration cap: not converged, the count at the cap
     _, capped = tkry.cg(lambda v: At @ v, t64(b), atol=1e-10, maxiter=5)
     assert not capped.converged and capped.iterations == 5
+
+
+@pytest.mark.parametrize("dx,dy", [((True, True), (False, False)),
+                                   ((False, False), (False, False))])
+def test_fdm_solve_matches_reference(dx, dy, monkeypatch):
+    """``FDM2D.solve`` (the precomputed diagonal, one RHS and a batch)
+    against ``sem_tpu``'s, ≤ 1e-12 relative, and equal to ``fdm(r)``."""
+    monkeypatch.setenv("SEM_TPU_CACHE", "0")
+    jf = JFDM2D(JGrid2D(*CFG), dirichlet_x=dx, dirichlet_y=dy, alpha=1.5)
+    tf = FDM2D(Grid2D(*CFG), dirichlet_x=dx, dirichlet_y=dy, alpha=1.5)
+    r = np.random.default_rng(2).standard_normal((3, jf.grid.N))
+    ref = np.asarray(jf.solve(jnp.asarray(r)))
+    got = tf.solve(t64(r))
+    assert rel_err(got, ref) <= 1e-12
+    assert rel_err(tf.solve(t64(r[1])), ref[1]) <= 1e-12
+    assert torch.equal(got, tf(t64(r)))
+
+
+@pytest.mark.parametrize("solver", ["gmres", "fgmres"])
+@pytest.mark.parametrize("eta", [0.0, 0.25, 1.0])
+def test_dgks_eta_matches_reference(solver, eta):
+    """``dgks_eta=`` of ``gmres`` and ``fgmres`` on the f32 CD chunk (left
+    FDM preconditioner): the reference's iterations ±1 and resweep counts
+    ±1; η = 0 never resweeps, η = 1 resweeps every iteration, and the
+    default equals η = 0.25 (``DGKS_ETA``) bit for bit."""
+    jmv, tmv, jfdm, tfdm, b = _cd_system()
+    f32 = jnp.float32
+    jA, tA = jmv(f32), tmv(torch.float32)
+    rp_j, rp_t = jfdm(jnp.asarray(b, f32)), tfdm(t32(b))
+    atol = 1e-5 * float(jnp.linalg.norm(rp_j))
+    kw = dict(atol=atol, restart=20, maxiter=200, dgks_eta=eta)
+    if solver == "gmres":
+        jinfo = jkry.gmres(lambda q: jfdm(jA(q)), rp_j, **kw)[1]
+        x, info = tkry.gmres(lambda q: tfdm(tA(q)), rp_t, **kw)
+        x0, info0 = tkry.gmres(lambda q: tfdm(tA(q)), rp_t,
+                               **dict(kw, dgks_eta=None))
+    else:
+        ident = lambda r: r  # noqa: E731
+        jinfo = jkry.fgmres(lambda q: jfdm(jA(q)), rp_j, precon=ident,
+                            **kw)[1]
+        x, info = tkry.fgmres(lambda q: tfdm(tA(q)), rp_t, precon=ident,
+                              **kw)
+        x0, info0 = tkry.fgmres(lambda q: tfdm(tA(q)), rp_t, precon=ident,
+                                **dict(kw, dgks_eta=None))
+    assert info.converged and bool(jinfo.converged)
+    assert abs(info.iterations - int(jinfo.iterations)) <= 1
+    assert abs(info.resweeps - int(jinfo.resweeps)) <= 1
+    if eta == 0.0:
+        assert info.resweeps == 0
+    if eta == 1.0:
+        assert info.resweeps == info.iterations
+    if eta == tkry.DGKS_ETA:
+        assert info0 == info and torch.equal(x0, x)
+
+
+def test_package_exports_match_reference():
+    """The port's top-level and ``models`` exports cover ``sem_tpu``'s:
+    ``cg`` and the two solvers by the same names."""
+    import sem_tpu
+    import sem_tpu.models
+    import sem_tpu_torch
+    import sem_tpu_torch.models
+
+    assert set(sem_tpu.__all__) <= set(sem_tpu_torch.__all__)
+    assert sem_tpu_torch.models.__all__ == sem_tpu.models.__all__
+    assert sem_tpu_torch.cg is tkry.cg
+    for name in sem_tpu_torch.models.__all__:
+        assert getattr(sem_tpu_torch.models, name) is getattr(sem_tpu_torch,
+                                                              name)

@@ -26,8 +26,8 @@ from sem_tpu_torch.coupling import mda as tmda
 from sem_tpu_torch.coupling.mda import _fgmres
 from sem_tpu_torch.krylov import _givens_update_device
 
-from tests.torch_parity import (one_torch_thread, rel_err, t32,  # noqa
-                                t64)
+from tests.torch_parity import (one_torch_thread, port_unfused,  # noqa
+                                rel_err, t32, t64)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -279,7 +279,7 @@ def _fields(cd, ns, s):
             ns._get_interpol(s.v, PLOT21)]
 
 
-def test_fused_jnk_solve_matches_reference(monkeypatch):
+def test_fused_jnk_solve_matches_reference(monkeypatch, port_unfused):
     """A whole JNK solve at QUICK with ``fused=True`` against sem_tpu's
     default host path (``device_krylov=False``, ``SEM_TPU_FG_FUSED=1``,
     ``SEM_TPU_FUSED_PC=1``): equal MDA stats and coupled GMRES iterations,
@@ -340,7 +340,7 @@ def test_device_jnk_solve_matches_reference(mixed, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("program", ["device_krylov", "fused"])
-def test_ptc_programs_match_reference(program, monkeypatch):
+def test_ptc_programs_match_reference(program, monkeypatch, port_unfused):
     """PTC from zero at Ra=1e4 (``precon='bj'``; the coarse ``bgs``
     marches converge in neither package, ROADMAP C1) with the device
     windows (DOF 2044 ≤ ``PTC_DEVICE_MAX_DOF``) or the fused host programs,
@@ -359,7 +359,7 @@ def test_ptc_programs_match_reference(program, monkeypatch):
     np.testing.assert_allclose(s.u.numpy(), np.asarray(js.u), atol=1e-6)
 
 
-def test_krylov_econ_fused_spans(monkeypatch, capsys):
+def test_krylov_econ_fused_spans(monkeypatch, capsys, port_unfused):
     """``krylov_econ --direct --fused`` at QUICK's grids: the spans of the
     fused programs and of the fused preconditioner are printed, and the
     solve gives the stats of a ``fused=True`` solve of the same problem."""

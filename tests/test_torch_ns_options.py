@@ -40,6 +40,7 @@ from sem_tpu_torch.coupling.components import (ConvectionDiffusionComponent,
 from sem_tpu_torch.coupling.mda import BoussinesqMDA
 
 from tests.torch_parity import one_torch_thread, t32, t64  # noqa: F401
+from tests.torch_parity import port_unfused  # noqa: F401
 
 # the configuration of tests/test_ns_solver.py:90-96
 KW = dict(Re=50.0, Gr=100.0, P=3, N_ex=3, N_ey=3, u_N=1.0, mtol=1e-11,
@@ -224,10 +225,11 @@ def test_schur_resolution_counts_match_reference(precon):
         assert counts[TNS, 16] > 1.5 * counts[TNS, 8]
 
 
-def test_build_coupled_pcd_jnk_matches_reference(monkeypatch):
+def test_build_coupled_pcd_jnk_matches_reference(monkeypatch, port_unfused):
     """``build_coupled(..., schur_precon="pcd")``, JNK at the QUICK
-    configuration: MDA stats equal to the reference's (un-fused host
-    FGMRES), coupled GMRES iterations within ±1, T/u within 1e-7."""
+    configuration, both packages pinned to the un-fused host FGMRES: MDA
+    stats equal to the reference's, coupled GMRES iterations within ±1, T/u
+    within 1e-7."""
     monkeypatch.setenv("SEM_TPU_FG_FUSED", "0")
     monkeypatch.setenv("SEM_TPU_FUSED_PC", "0")
     _, jns, jmda = jbq.build_coupled(1.0, 1.0, mode="JNK", schur_precon="pcd",
@@ -378,7 +380,7 @@ def _level_stats(text):
 
 
 def test_solve_continued_level_already_converged_matches_reference(
-        monkeypatch):
+        monkeypatch, port_unfused):
     """``solve_continued`` with ``mtol_nonlin`` loose enough (1e-4) that the
     prolonged P=4 state already meets it at P=8: the per-level stats of the
     two packages are equal, and the fine level does no nonlinear iteration

@@ -30,7 +30,8 @@ from sem_tpu_torch.ops import _build, kernels, sharded
 from sem_tpu_torch.parallel import (assert_replicated, choose_backend,
                                     row_strips, use_group)
 
-from tests.torch_parity import one_torch_thread, t32  # noqa: F401
+from tests.torch_parity import (UNFUSED, one_torch_thread,  # noqa: F401
+                                port_unfused, t32)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -355,7 +356,8 @@ reset()
 pts21 = np.meshgrid(np.linspace(0, 1, 21), np.linspace(0, 1, 21),
                     indexing="ij")
 T, u, v, s, stats = run_parallel(pts21, 1.0, 1.0, mode="JNK", device="cpu",
-                                 return_state=True, **cfg["quick"])
+                                 return_state=True, **cfg["quick"],
+                                 **cfg["unfused"])
 np.save(f"{out}/run_rank{rank}.npy", np.stack([T, u, v]))
 res.update(stats=stats.as_list(), gmres_iters=stats.gmres_iters,
            collectives=dict(COLLECTIVES), launches=dict(LAUNCHES),
@@ -365,7 +367,7 @@ res.update(stats=stats.as_list(), gmres_iters=stats.gmres_iters,
 reset()
 with use_group(group):
     _, _, mda = build_coupled(1.0, 1.0, mode="PTC", device="cpu",
-                              **cfg["ptc"])
+                              **cfg["ptc"], **cfg["unfused"])
     s = mda.solve()
     res.update(ptc_stats=mda.stats.as_list(),
                ptc_gmres_iters=mda.stats.gmres_iters,
@@ -407,10 +409,13 @@ def _free_port():
 def two_ranks(tmp_path_factory):
     """Two processes over gloo on the CPU (free port, one torch thread
     each, killed on failure or after 300 s), started once; their results as
-    ``[(json, dir)]`` per rank."""
+    ``[(json, dir)]`` per rank.  Their coupled solves are pinned to the
+    un-fused host program (``UNFUSED``), which the tests hold against
+    ``sem_tpu``'s."""
     out = tmp_path_factory.mktemp("two_ranks")
     port = _free_port()
-    cfg = json.dumps({"cd": CD_KW, "quick": QUICK, "ptc": PTC_KW})
+    cfg = json.dumps({"cd": CD_KW, "quick": QUICK, "ptc": PTC_KW,
+                      "unfused": UNFUSED})
     procs = []
     for rank in range(2):
         env = dict(os.environ, SEM_TPU_COORDINATOR=f"127.0.0.1:{port}",
@@ -474,8 +479,8 @@ def _check_run(res, out, T, u, v, stats, gmres_iters):
 
 def test_two_process_run_parallel_matches_jax(two_ranks):
     """(b) run_parallel QUICK JNK over two gloo ranks against
-    sem_tpu.coupling.run_parallel on the 8-device mesh (un-fused host
-    FGMRES, the algorithm the port implements)."""
+    sem_tpu.coupling.run_parallel on the 8-device mesh, both pinned to the
+    un-fused host FGMRES."""
     res, out = two_ranks
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEM_TPU_FG_FUSED", "0")
@@ -487,7 +492,8 @@ def test_two_process_run_parallel_matches_jax(two_ranks):
                stats.gmres_iters)
 
 
-def test_two_process_run_parallel_matches_single_process(two_ranks):
+def test_two_process_run_parallel_matches_single_process(two_ranks,
+                                                         port_unfused):
     """(c) The same two-rank run against the port's single-process run."""
     res, out = two_ranks
     T, u, v, _, stats = run(PLOT21, 1.0, 1.0, mode="JNK", device="cpu",
@@ -506,7 +512,7 @@ def test_two_process_run_took_the_strip_path(two_ranks):
     assert res[0]["collectives"] == res[1]["collectives"]
 
 
-def test_two_process_ptc_matches_single_process(two_ranks):
+def test_two_process_ptc_matches_single_process(two_ranks, port_unfused):
     """(d) ``mode="PTC"`` (``velo_inner=0``) under a two-rank group against
     the port's single-process PTC march: equal MDA stats, coupled GMRES
     iterations within 1, u and v within 1e-6, the same in both ranks, on
@@ -550,7 +556,8 @@ def _inner_counts(monkeypatch, fn, cd_cls, ns_cls, **kw):
     return stats.as_list(), inner
 
 
-def test_two_process_inner_counts_follow_reference(two_ranks, monkeypatch):
+def test_two_process_inner_counts_follow_reference(two_ranks, monkeypatch,
+                                                   port_unfused):
     """ROADMAP C3: decomposing the solves changes the f32 chunks' inner
     iteration counts through the order of the reductions alone, in sem_tpu
     as in the port.  At QUICK JNK the CD count is the same single-process,

@@ -20,6 +20,8 @@ import pytest
 from sem_tpu.coupling import build_coupled as jax_build_coupled
 from sem_tpu.parallel.sharding import make_mesh, use_mesh
 
+from tests.torch_parity import UNFUSED
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 # the QUICK configuration of tests/test_torch_parallel.py:34-35 (P3 3×3)
@@ -178,13 +180,13 @@ nsm.fgmres = fgmres_
 save("retry", x=retry[0][0])
 
 # (c) velo_inner=5, JNK and PTC
-coupled("jnk5", mode="JNK", velo_inner=5, **cfg["quick"])
-coupled("ptc5", mode="PTC", velo_inner=5, **cfg["ptc"])
+coupled("jnk5", mode="JNK", velo_inner=5, **cfg["quick"], **cfg["unfused"])
+coupled("ptc5", mode="PTC", velo_inner=5, **cfg["ptc"], **cfg["unfused"])
 
 # (d) fused=True, and the collectives of one fused step
 with ctx():
     _, _, mda = build_coupled(1.0, 1.0, mode="JNK", fused=True, device="cpu",
-                              **cfg["quick"])
+                              device_krylov=False, **cfg["quick"])
     s = mda.solve()
     res["fused"] = dict(stats=mda.stats.as_list(),
                         gmres=mda.stats.gmres_iters)
@@ -198,7 +200,8 @@ with ctx():
     res["fused_step_collectives"] = dict(COLLECTIVES)
 
 # the fused preconditioner over the flexible strip chunks
-coupled("fused5", mode="JNK", fused=True, velo_inner=5, **cfg["quick"])
+coupled("fused5", mode="JNK", fused=True, device_krylov=False, velo_inner=5,
+        **cfg["quick"])
 
 # (e) device_krylov=True
 coupled("devk", mode="JNK", device_krylov=True, **cfg["quick"])
@@ -263,7 +266,8 @@ def runs(tmp_path_factory):
     runs)``."""
     out = tmp_path_factory.mktemp("parallel_programs")
     port = _free_port()
-    cfg = json.dumps({"quick": QUICK, "ptc": PTC_KW, "ns": NS_KW})
+    cfg = json.dumps({"quick": QUICK, "ptc": PTC_KW, "ns": NS_KW,
+                      "unfused": UNFUSED})
     base = {k: v for k, v in os.environ.items()
             if not k.startswith("SEM_TPU_")}
     base.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")

@@ -2,7 +2,8 @@
 coupled PTC mode with the ``bj``/``bgs``/``bgs2`` preconditioners, the
 standalone ``NavierStokesSolver.solve_ptc``, and checkpoints and wall-clock
 budgets, against ``sem_tpu`` on its host FGMRES path (un-fused,
-``device_krylov=False``: the algorithm the port implements).  Checkpoints
+``device_krylov=False``), with the port pinned to the same program
+(``port_unfused``).  Checkpoints
 cross between the packages in both directions.  ``device="cpu"`` throughout;
 tolerances are stated per test."""
 import itertools
@@ -29,6 +30,7 @@ from sem_tpu_torch.ptc import SERController
 from sem_tpu_torch.utils import checkpoint as tckpt
 
 from tests.torch_parity import one_torch_thread, rel_err, t64  # noqa: F401
+from tests.torch_parity import port_unfused  # noqa: F401
 
 # the configuration of tests/test_ptc.py:146-147
 PTC_KW = dict(Re=1e3, Ra=1e4, Pr=0.71, P_cd=3, N_ex_cd=4, N_ey_cd=4,
@@ -36,9 +38,13 @@ PTC_KW = dict(Re=1e3, Ra=1e4, Pr=0.71, P_cd=3, N_ex_cd=4, N_ey_cd=4,
 PRECONS = ["bj", "bgs", "bgs2"]
 
 
+pytestmark = pytest.mark.usefixtures("port_unfused")
+
+
 @pytest.fixture(autouse=True)
 def sem_tpu_host_path(monkeypatch):
-    """sem_tpu's coupled solves take the un-fused host FGMRES path."""
+    """sem_tpu's coupled solves take the un-fused host FGMRES path (the
+    port's: ``port_unfused``, for every test of this file)."""
     monkeypatch.setenv("SEM_TPU_FG_FUSED", "0")
     monkeypatch.setenv("SEM_TPU_FUSED_PC", "0")
 

@@ -23,7 +23,7 @@ from sem_tpu_torch import NavierStokesSolver as TNS
 from sem_tpu_torch.convert import state_from_numpy, state_to_numpy
 from sem_tpu_torch.coupling import build_coupled, run
 
-from tests.torch_parity import one_torch_thread  # noqa: F401
+from tests.torch_parity import one_torch_thread, port_unfused  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -35,9 +35,10 @@ PLOT21 = np.meshgrid(np.linspace(0, 1, 21), np.linspace(0, 1, 21),
 
 
 def _jax_reference(mode, s0=None):
-    """``sem_tpu`` on the algorithm the port implements: host FGMRES
+    """``sem_tpu`` pinned to its un-fused host program: host FGMRES
     (``device_krylov=False``) with un-fused iterations and the adaptive
-    host-orchestrated block-Jacobi preconditioner."""
+    host-orchestrated block-Jacobi preconditioner; the tests pin the port
+    to the same program (``port_unfused``)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEM_TPU_FG_FUSED", "0")
         mp.setenv("SEM_TPU_FUSED_PC", "0")
@@ -61,7 +62,7 @@ def reference_runs():
 
 
 @pytest.mark.parametrize("mode", ["GS", "NJ", "JNK"])
-def test_coupled_modes_match_reference(mode, reference_runs):
+def test_coupled_modes_match_reference(mode, reference_runs, port_unfused):
     """Fields at PLOT21 within the bounds of tests/test_coupling.py:55-57
     (T 1e-7, u/v 1e-8); equal solve counts and nonlinear iterations;
     coupled GMRES iterations within ±1."""
@@ -81,7 +82,7 @@ def test_coupled_modes_match_reference(mode, reference_runs):
     assert ns.f64_fallback_count == jns.f64_fallback_count == 0
 
 
-def test_warm_start_carried_across_packages(reference_runs):
+def test_warm_start_carried_across_packages(reference_runs, port_unfused):
     """A non-zero coupled state from sem_tpu, carried into the port through
     convert.py: equal coupled residual norms (1e-12 relative), and a warm
     JNK solve from it matches the reference's warm solve."""

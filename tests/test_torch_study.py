@@ -25,7 +25,7 @@ from sem_tpu.utils import save_checkpoint as jax_save_checkpoint
 from sem_tpu_torch.study import adjoint_hi, boussinesq_run, summarize
 from sem_tpu_torch.utils import PhaseTimer, trace
 
-from tests.torch_parity import one_torch_thread  # noqa: F401
+from tests.torch_parity import one_torch_thread, port_unfused  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -76,11 +76,12 @@ def _reference_study():
 
 
 @pytest.mark.parametrize("mode", ["GS", "NJ", "JNK"])
-def test_boussinesq_run_matches_reference(tmp_path, monkeypatch, mode):
+def test_boussinesq_run_matches_reference(tmp_path, monkeypatch, mode,
+                                          port_unfused):
     """P2 Ne4: the port writes the files of sem_tpu's title rule (``.log``,
     ``.npz``, ``.stats.json`` and ``.ckpt.npz``) into its ``-outdir``, with
-    the stats sem_tpu writes (its host FGMRES, un-fused: the algorithm the
-    port implements): equal for GS and NJ; for JNK equal anchors and
+    the stats sem_tpu writes (both pinned to the host FGMRES, un-fused):
+    equal for GS and NJ; for JNK equal anchors and
     nonlinear iterations, and discipline solves within 2 per nonlinear
     iteration (the study's fixed coupled tolerance, 1e-13 RMS, sits at the
     f64 floor, where one more FGMRES iteration is roundoff).  summarize
@@ -149,13 +150,23 @@ def _study_files(out):
     return names, stats
 
 
-def test_backend_mesh_raises(tmp_path, monkeypatch):
+_PINNED_RUN = """
+import runpy
+from tests.torch_parity import pinned_unfused
+with pinned_unfused():
+    runpy.run_module("sem_tpu_torch.study.boussinesq_run", run_name="__main__")
+"""
+
+
+def test_backend_mesh_raises(tmp_path, monkeypatch, port_unfused):
     """-backend mesh (P3 Ne4 JNK, with checkpoints): without the
     ``SEM_TPU_*`` variables one process runs the single path and writes
     the files and stats of -backend single; with them, two ranks over gloo
     (each in a directory of its own, the same relative -outdir) end with
     the same stats, and rank 0 alone writes the files (its ``.log``
-    included)."""
+    included).  Every run is pinned to the un-fused host program (the
+    device windows' iteration-0 sweep rounds otherwise on the strips,
+    ROADMAP C7)."""
     for k in [k for k in os.environ if k.startswith("SEM_TPU_")]:
         monkeypatch.delenv(k)
     args = ["-P", "3", "-Ne", "4", "-ckpt", "True", "-device", "cpu"]
@@ -177,7 +188,7 @@ def test_backend_mesh_raises(tmp_path, monkeypatch):
                    PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                    CUDA_VISIBLE_DEVICES="")
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "sem_tpu_torch.study.boussinesq_run",
+            [sys.executable, "-c", _PINNED_RUN,
              *args, "-log", "True", "-backend", "mesh", "-outdir", "out"],
             cwd=tmp_path / f"rank{r}", env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))

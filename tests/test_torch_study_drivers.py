@@ -3,14 +3,15 @@ package's ``study/`` scripts: ``centerline`` on a field ``.npz`` that
 ``sem_tpu``'s study writes, the offline SciPy studies ``schur_spectrum`` and
 ``coupled_pc_diag`` (host only), and ``north_star``, ``krylov_econ``,
 ``ns_scale`` and ``ptc_band_probe`` with their module-level configurations
-patched down to P2-P4.  The port runs on the CPU; ``sem_tpu`` runs its host
-FGMRES, un-fused (the algorithm the port implements)."""
+patched down to P2-P4.  The port runs on the CPU; with the ``unfused``
+fixture both packages run the host FGMRES, un-fused."""
 import contextlib
 import glob
 import importlib.util
 import io
 import pathlib
 import re
+import runpy
 import sys
 
 import numpy as np
@@ -28,7 +29,7 @@ from sem_tpu_torch.study import (centerline, coupled_pc_diag, krylov_econ,
                                  north_star, ns_scale, ptc_band_probe,
                                  schur_spectrum)
 
-from tests.torch_parity import one_torch_thread  # noqa: F401
+from tests.torch_parity import one_torch_thread, port_unfused  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -43,7 +44,9 @@ def _reference(name):
 
 
 @pytest.fixture
-def unfused(monkeypatch):
+def unfused(monkeypatch, port_unfused):
+    """Both packages on the un-fused host program: ``sem_tpu`` through its
+    variables, the port through ``port_unfused``."""
     for k in ("SEM_TPU_FG_FUSED", "SEM_TPU_FUSED_PC",
               "SEM_TPU_DEVICE_KRYLOV_MAX_DOF"):
         monkeypatch.setenv(k, "0")
@@ -164,14 +167,15 @@ def test_coupled_pc_diag_converged_wind_matches_reference(monkeypatch):
 
 @pytest.mark.slow
 def test_coupled_pc_diag_full_size_matches_reference(monkeypatch):
-    """The JAX study as it runs at import (P8 8×8, Re=400, synthetic wind)
-    against the port's ``main`` at its default constants: the same
-    iteration counts and residuals as printed.  (~6 min; the small-size
-    test above covers the same functions.)"""
+    """The JAX study as a script (P8 8×8, Re=400, synthetic wind; run as
+    ``__main__``, so that its rows print) against the port's ``main`` at
+    its default constants: the same iteration counts and residuals as
+    printed.  (The small-size test above covers the same functions.)"""
     monkeypatch.setattr(sys, "argv", ["coupled_pc_diag.py", "--synthetic"])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        _reference("coupled_pc_diag")
+        runpy.run_path(str(ROOT / "study" / "coupled_pc_diag.py"),
+                       run_name="__main__")
     ref = {m.group(1).strip(): (int(m.group(2)), m.group(3))
            for m in re.finditer(r"^(.+?)\s*: iters=\s*(\d+) rel=(\S+)$",
                                 buf.getvalue(), re.M)}

@@ -2,14 +2,15 @@
 
 Prints ``[cd_solves, ns_solves, nonlinear]``, the coupled GMRES iterations
 and u_max·RePr of one from-zero JNK solve (Re=1e3, Ra=1e3, Pr=0.71,
-``mtol_nonlin=1e-8``, host FGMRES) of ``sem_tpu`` (``--package jax``; its
-fused programs follow the environment: ``SEM_TPU_FG_FUSED``,
-``SEM_TPU_FUSED_PC``) or of ``sem_tpu_torch`` (``--package torch``, on the
-CPU).  Not a test; run from the root of a checkout::
+``mtol_nonlin=1e-8``, host FGMRES) of ``sem_tpu`` (``--package jax``) or of
+``sem_tpu_torch`` (``--package torch``, on the CPU).  In both the fused
+programs follow ``SEM_TPU_FG_FUSED`` (the port: ``fused=False`` where it is
+``0``).  Not a test; run from the root of a checkout::
 
     SEM_TPU_FG_FUSED=0 SEM_TPU_FUSED_PC=0 JAX_PLATFORMS=cpu \\
         python tests/torch_stats_compare.py --package jax -P 8 --ne-ns 16 --ne-cd 8
-    python tests/torch_stats_compare.py --package torch -P 8 --ne-ns 16 --ne-cd 8
+    SEM_TPU_FG_FUSED=0 \\
+        python tests/torch_stats_compare.py --package torch -P 8 --ne-ns 16 --ne-cd 8
 """
 import argparse
 import os
@@ -38,7 +39,8 @@ def main():
         _, _, mda = build_coupled(1.0, 1.0, **kw)
     else:
         from sem_tpu_torch.coupling import build_coupled
-        _, _, mda = build_coupled(1.0, 1.0, device="cpu", **kw)
+        fused = os.environ.get("SEM_TPU_FG_FUSED", "1") != "0"
+        _, _, mda = build_coupled(1.0, 1.0, device="cpu", fused=fused, **kw)
     s = mda.solve()
     u_anchor = float(abs(s.u).max()) * 1e3 * 0.71
     print(f"package={a.package} P={a.P} ns={a.ne_ns}x{a.ne_ns} "

@@ -12,7 +12,9 @@ the last line):
    the ``nvcc`` build of the CUDA kernels from ``sem_tpu_torch/csrc``;
 2. kernel B1 (CD system apply) vs its plain PyTorch version and vs the f64
    dense path, at P=4 8×8, P=16 32×32 and P=16 64×64, tolerance
-   2e-5·max|ref|;
+   2e-5·max|ref|; then on bfloat16 fields (the reference's Pallas kernels'
+   other dtype) vs its plain version at bf16, within one bf16 ulp
+   (``BF16_TOL``: rtol 2^-7, atol 1e-5·max|ref|);
 3. kernel B2 (NS coupled saddle matvec), the same checks;
 4. each whole-grid kernel at its main-path shape (B1 at P=16 32×32 and
    also 64×64, B2 at P=16 64×64): ``device_us`` (20 wrapper calls captured
@@ -30,6 +32,10 @@ the last line):
    ``device_us``), ``strip_r1_us`` (the device time of B3/B4 on one strip,
    R=1: the same kernel through its row-window entry point, on the same
    inputs) and ``strip_over_whole`` (that over ``device_us``, about 1);
+   then the same rows on bf16 fields (``bound_us`` at 2 bytes per field
+   value, the coefficient tables at f32; ``library_us`` a bf16
+   ``torch.sparse_csr_tensor`` product where torch takes one on the card,
+   else the error it raised);
 5. the reference configuration: ``run`` JNK, P=4 8×8, Ra=1e3, on the
    entry point's default program (4,356 coupled DOF: the device windows) —
    de Vahl Davis anchors u_max·RePr = 3.649 and v_max·RePr = 3.697 within
@@ -46,11 +52,20 @@ the last line):
    versions and the f64 dense path (tolerance 2e-5·max|ref|), and against
    B1's/B2's output, which must be the same bits (B3/B4 are B1/B2's kernels
    on a row window: this holds the window, halo and tile-lattice logic
-   against the whole-grid launch);
+   against the whole-grid launch); then on bf16 fields against the bf16
+   plain strips (``BF16_TOL``) and the bf16 whole-grid launch (same bits);
 8. B3/B4 on rank 0's strip of R=2 at P=16 64×64, and B3 also at its
    main-path shape P=16 32×32: the measurements of phase 4 but
    ``strip_r1_us`` (the library operator is the strip's rows against the
-   haloed strip's columns);
+   haloed strip's columns), at f32 and at bf16;
+8b. the bf16 path: the dispatchers ``apply_system_best`` (CD grid, P=16
+   32×32) and ``apply_coupled_system_best`` (NS grid, P=16 64×64) and the
+   strip kernels B3/B4 on the two strips of R=2 (halos cut from the full
+   field), each driving ``BF16_POWER_STEPS`` steps of a power iteration on
+   bf16 fields, the counts reset just before and read just after: every
+   bf16 kernel launched that many times (per strip for B3/B4) and no f32
+   kernel; the estimates finite and within 2 % of the same iteration at
+   f32 (run after the counts are read);
 9. the multi-process path at full size: ``run_parallel`` with the configuration
    of phase 6 (pinned as phase 6 is), two ranks started as two processes of
    this script (NCCL with one card per rank where there are two cards, gloo
@@ -198,6 +213,8 @@ the last line):
     launches those of the pinned run of the same program in this call (23c
     device, 23a fused) and the u-anchor 3.6531 ± 1e-3.
 
+``python3 chip_smoke.py --kernels`` runs phases 1-4, 7, 8 and 8b alone (the
+kernel checks and timings at both dtypes),
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
 ``python3 chip_smoke.py --parallel`` phase 9 (with 9b-9d) alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
@@ -211,7 +228,10 @@ kernel at its main-path shape: ``ms`` and ``plain_ms`` are event pairs
 ``library_ms`` CUDA-graph device times, ``launches`` the count of phase 6
 (B1/B2) or phase 9 (B3/B4, rank 0) and ``launches_by_path`` the counts of
 phases 10–12, 14–15, 18, 19's march, 20–22 (rank 0's for the parallel
-example), 23, 24 and 9b–9d (rank 0's); as the last line
+example), 23, 24 and 9b–9d (rank 0's); then one entry per kernel at bf16
+(``"dtype": "bfloat16"``, the same ``replaces``), its ``launches`` those of
+phase 8b and its ``launches_by_path`` the bf16 counts of phase 6 and of the
+paths above (0: every solver runs f32); as the last line
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -247,6 +267,10 @@ DEVICE_KRYLOV_MAX_DOF = 1_000_000
 DEVICE_GRIDS = dict(NORTH_STAR, N_ex_ns=32, N_ey_ns=32, N_ex_cd=16,
                     N_ey_cd=16, mtol_nonlin=1e-10)
 RANK_TIMEOUT_S = 600
+# phases 2, 3, 7: a bf16 kernel against its bf16 plain version: one bf16
+# ulp (8 significant bits) relative, and 1e-5·max|ref| absolute
+BF16_TOL = dict(rtol=2.0 ** -7, atol_rel=1e-5)
+BF16_POWER_STEPS = 10  # phase 8b
 # phases 11-13: the grids and tolerance of the main path at Ra=1e5
 PTC_RA1E5 = dict(NORTH_STAR, Ra=1e5, mode="PTC")
 # de Vahl Davis (1983): u_max·RePr on x=1/2, v_max·RePr on y=1/2, by Ra
@@ -359,15 +383,16 @@ def host_us(fn, n=200):
     return 1e6 * dt / n
 
 
-def bound_us(kernels, coupled, grid, rows, strip, mb=None):
+def bound_us(kernels, coupled, grid, rows, strip, mb=None, fbytes=4):
     """(µs, "bytes" or "operations") of the least time the card could take
     for one apply of B1/B3 (``coupled`` False) or B2/B4 on grid rows
     ``rows``: each input byte read once and each output byte written once
-    (the Krylov fields with their P halo rows for a strip; the band
-    coefficients of the rows and columns; the mask as bytes) over the HBM
-    rate, against the flops of the structurally nonzero taps that the
-    outputs need (``band_tap_ranges``; on a Dirichlet row of B2 only K dp)
-    plus the epilogue's, over the f32 peak."""
+    (the Krylov fields with their P halo rows for a strip, ``fbytes`` per
+    field value: 4 at f32, 2 at bf16; the f32 band coefficients of the rows
+    and columns; the mask as bytes) over the HBM rate, against the flops of
+    the structurally nonzero taps that the outputs need
+    (``band_tap_ranges``; on a Dirichlet row of B2 only K dp) plus the
+    epilogue's, over the f32 peak (the arithmetic is f32 at both dtypes)."""
     P, Ngx, Ngy = grid.P, grid.Ngx, grid.Ngy
     r0, r1 = rows
     nr, nb = r1 - r0, 2 * P + 1
@@ -380,13 +405,13 @@ def bound_us(kernels, coupled, grid, rows, strip, mb=None):
     consts = 8 * nb * (nr + Ngy) + 4 * (nr + Ngy)
     taps = Ngy * nx.sum() + nr * ny.sum()       # one x sum + one y sum
     if not coupled:
-        nbytes = 4 * (ext + 3 * nodes) + consts
+        nbytes = fbytes * (ext + 3 * nodes) + consts
         flops = 2 * 2 * taps + 10 * nodes
     else:
         m = mb.reshape(nr, Ngy).cpu().numpy()
         n_mb = float(m.sum())
         taps_mb = (m.sum(1) * nx).sum() + (m.sum(0) * ny).sum()
-        nbytes = 4 * (3 * ext + 9 * nodes) + nodes + consts
+        nbytes = fbytes * (3 * ext + 9 * nodes) + nodes + consts
         flops = (2 * (5 * (taps - taps_mb) + taps_mb)
                  + 33 * (nodes - n_mb) + 3 * n_mb)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
@@ -398,7 +423,8 @@ def csr_operator(kernels, grid, rows, strip, pointwise):
     """The operator of B1/B3 (``pointwise = (u, v, coef)`` of the rows) or
     B2/B4 (``(ul, vl, jac, mb, coef)``) on grid rows ``rows``, assembled on
     the card from the band storage with index arithmetic, zeros dropped,
-    as a ``torch.sparse_csr_tensor`` (f32 values, int32 indices).  Its
+    as a ``torch.sparse_csr_tensor`` (values in the pointwise fields'
+    dtype, f32 or bf16, rounded from the f32 operator; int32 indices).  Its
     columns are the input field(s) whole, or for a strip the strip with P
     halo rows per side; B2's Dirichlet rows are du, dv and K dp.  A
     yardstick for ``library_us`` only: the port never calls it."""
@@ -442,7 +468,7 @@ def csr_operator(kernels, grid, rows, strip, pointwise):
 
     if len(pointwise) == 3:
         u, v, coef = pointwise
-        U, V = u.view(nr, Ngy), v.view(nr, Ngy)
+        U, V = u.view(nr, Ngy).float(), v.view(nr, Ngy).float()
         x(c["kxb"], MY)
         x(c["gxb"], coef * U * MY)
         y(c["kybT"], MX)
@@ -450,8 +476,8 @@ def csr_operator(kernels, grid, rows, strip, pointwise):
         shape = (M, F)
     else:
         ul, vl, jac, mb, coef = pointwise
-        UL, VL = ul.view(nr, Ngy), vl.view(nr, Ngy)
-        JXX, JXY, JYX, JYY = (a.view(nr, Ngy) for a in jac)
+        UL, VL = ul.view(nr, Ngy).float(), vl.view(nr, Ngy).float()
+        JXX, JXY, JYX, JYY = (a.view(nr, Ngy).float() for a in jac)
         m = mb.view(nr, Ngy).float()
         nm = 1 - m
         for ro, co in ((0, 0), (M, F)):      # dru (du block), drv (dv block)
@@ -478,11 +504,14 @@ def csr_operator(kernels, grid, rows, strip, pointwise):
         A = torch.sparse_coo_tensor(torch.stack([rr, cc]), vv, shape
                                     ).coalesce().to_sparse_csr()
         return torch.sparse_csr_tensor(A.crow_indices().int(),
-                                       A.col_indices().int(), A.values(),
+                                       A.col_indices().int(),
+                                       A.values().to(pointwise[0].dtype),
                                        shape)
 
 
-def main():
+def main(kernels_only=False):
+    """The smoke run (module docstring); ``kernels_only``: phases 1-4, 7, 8
+    and 8b alone."""
     import numpy as np
     import torch
 
@@ -537,6 +566,18 @@ def main():
         scale = float(ref.double().abs().max())
         return err, scale
 
+    def bf16_ok(got, ref):
+        """(within BF16_TOL elementwise, largest |got-ref|, max|ref|)."""
+        g, r = got.double(), ref.double()
+        err, scale = max_err(got, ref)
+        ok = bool(((g - r).abs() <= BF16_TOL["rtol"] * r.abs()
+                   + BF16_TOL["atol_rel"] * scale).all())
+        return ok and got.dtype == torch.bfloat16, err, scale
+
+    bf16 = torch.bfloat16
+    bf16_tol = (f"rtol={BF16_TOL['rtol']:.6g}+"
+                f"{BF16_TOL['atol_rel']:g}*scale")
+
     walls.mark("1_build")
 
     # ---- 2./3. kernels vs plain and vs the f64 dense path ----
@@ -566,6 +607,24 @@ def main():
                                      f"dense) exceeds 2e-5*{scale:.3e}")
             if grid is main_grid[name]:
                 report[name]["max_abs_err"] = err
+    # the same kernels on bf16 fields, against their bf16 plain versions
+    for name, (kfn, pfn, _) in kernel_fns.items():
+        report[name + "_bf16"] = {}
+        for grid in (g4, g32, g64):
+            a = inputs(grid, bf16)[name]
+            got = kfn(grid, *a)
+            ref = pfn(grid, *a)
+            torch.cuda.synchronize()
+            ok, err, scale = bf16_ok(got, ref)
+            _line(name, dtype="bfloat16", grid=grid.tag, N=grid.N,
+                  max_abs_err=f"{err:.3e}", scale=f"{scale:.3e}",
+                  tol=bf16_tol, ok=ok)
+            if not ok:
+                raise AssertionError(f"{name} at {grid.tag}, bf16: kernel "
+                                     f"error {err:.3e} exceeds {bf16_tol} "
+                                     f"(scale {scale:.3e})")
+            if grid is main_grid[name]:
+                report[name + "_bf16"]["max_abs_err"] = err
 
     walls.mark("2_3_kernel_checks")
 
@@ -605,25 +664,41 @@ def main():
              "plain_us": call_us(lambda: pfn(*args)),
              "plain_device_us": device_us(lambda: pfn(*args)),
              "host_us": host_us(lambda: kfn(*args))}
+        low = x_in.dtype == bf16
         m["bound_us"], m["bound_by"] = bound_us(
             kernels, coupled, grid, rows, strip,
-            pointwise[3] if coupled else None)
+            pointwise[3] if coupled else None, fbytes=2 if low else 4)
         m["share"] = m["bound_us"] / m["device_us"]
         A = csr_operator(kernels, grid, rows, strip, pointwise)
-        got, lib = kfn(*args), A @ x_in
-        torch.cuda.synchronize()
-        err, scale = max_err(lib, got)
-        if not err <= 1e-4 * scale:
-            raise AssertionError(f"{name} at {grid.tag}: the assembled CSR "
-                                 f"operator differs from the kernel by "
-                                 f"{err:.3e} (scale {scale:.3e})")
-        m["library_us"] = device_us(lambda: A @ x_in)
         m["library_nnz"] = A.values().numel()
+        got = kfn(*args)
+        try:
+            lib = A @ x_in
+            torch.cuda.synchronize()
+        except RuntimeError as e:   # no bf16 sparse product in this torch
+            if not low:
+                raise
+            m["library_us"] = None
+            m["library_error"] = repr(str(e).splitlines()[0][:120])
+        else:
+            err, scale = max_err(lib, got)
+            # the bf16 product rounds the operator's values to bf16, its
+            # output too: a few bf16 ulps of the largest output
+            if not err <= (2.0 ** -5 if low else 1e-4) * scale:
+                raise AssertionError(f"{name} at {grid.tag}: the assembled "
+                                     f"CSR operator differs from the kernel "
+                                     f"by {err:.3e} (scale {scale:.3e})")
+            m["library_us"] = device_us(lambda: A @ x_in)
+            m["library_err"] = err
         del A
         torch.cuda.empty_cache()
         return m
 
     def show(name, grid, m, **extra):
+        lib = ({"library_us": f"{m['library_us']:.2f}"}
+               if m["library_us"] is not None
+               else {"library_us": "none",
+                     "library_raised": m["library_error"]})
         _line("timing", kernel=name, grid=grid.tag, **extra,
               host_us=f"{m['host_us']:.2f}",
               device_us=f"{m['device_us']:.2f}",
@@ -631,25 +706,179 @@ def main():
               plain_us=f"{m['plain_us']:.1f}",
               plain_device_us=f"{m['plain_device_us']:.1f}",
               bound_us=f"{m['bound_us']:.2f}", bound_by=m["bound_by"],
-              share=f"{m['share']:.3f}",
-              library_us=f"{m['library_us']:.2f}",
+              share=f"{m['share']:.3f}", **lib,
               library_nnz=m["library_nnz"],
               device_method="cuda_graph_20_calls", smi=f"'{smi}'")
 
-    for name, (kfn, pfn, _) in kernel_fns.items():
-        for grid in (g32, g64) if name == "apply_system" else (g64,):
-            a = inputs(grid, torch.float32)[name]
-            m = measure(name, grid, (0, grid.Ngx), kfn, pfn, (grid, *a))
-            sname = strip_of[name]
-            sa = strip_args(sname, grid, (0, grid.Ngx), a)
-            sfn = strip_fns[sname][0]
-            m["strip_r1_us"] = device_us(lambda: sfn(*sa))
-            show(name, grid, m, strip_r1_us=f"{m['strip_r1_us']:.2f}",
-                 strip_over_whole=f"{m['strip_r1_us'] / m['device_us']:.3f}")
-            if grid is main_grid[name]:
-                report[name].update(m)
+    for dt, sfx in ((torch.float32, ""), (bf16, "_bf16")):
+        for name, (kfn, pfn, _) in kernel_fns.items():
+            for grid in (g32, g64) if name == "apply_system" else (g64,):
+                a = inputs(grid, dt)[name]
+                m = measure(name, grid, (0, grid.Ngx), kfn, pfn, (grid, *a))
+                sname = strip_of[name]
+                sa = strip_args(sname, grid, (0, grid.Ngx), a)
+                sfn = strip_fns[sname][0]
+                m["strip_r1_us"] = device_us(lambda: sfn(*sa))
+                show(name, grid, m, **({"dtype": "bfloat16"} if sfx else {}),
+                     strip_r1_us=f"{m['strip_r1_us']:.2f}", strip_over_whole=
+                     f"{m['strip_r1_us'] / m['device_us']:.3f}")
+                if grid is main_grid[name]:
+                    report[name + sfx].update(m)
 
     walls.mark("4_timings")
+
+    # ---- 7., 8., 8b. the strip kernels and the bf16 path ----
+    def strip_phases():
+        """Phases 7, 8 and 8b; returns phase 8b's launch counts."""
+        main_strip_grid = {"apply_system_sharded": g32,
+                           "apply_coupled_system_sharded": g64}
+
+        def on_strips(name, fn, grid, R, a):
+            """The strips' outputs in the whole grid's layout."""
+            outs = [fn(*strip_args(name, grid, rows, a)).reshape(-1, (
+                rows[1] - rows[0]) * grid.Ngy)
+                for rows in row_strips(grid.Ngx, R, grid.P)]
+            return torch.cat(outs, dim=1).reshape(-1)
+
+        # ---- 7. kernels B3/B4 on row strips, halos cut from the field ----
+        for name, (kfn, pfn) in strip_fns.items():
+            for grid in (g4, g32, g64):
+                a32 = inputs(grid, torch.float32)[whole[name]]
+                a64 = inputs(grid, torch.float64)[whole[name]]
+                ref64 = kernel_fns[whole[name]][2](grid, *a64)
+                b12 = kernel_fns[whole[name]][0](grid, *a32)
+                for R in (1, 2, 4):
+                    got = on_strips(name, kfn, grid, R, a32)
+                    ref = on_strips(name, pfn, grid, R, a32)
+                    torch.cuda.synchronize()
+                    err, scale = max_err(got, ref)
+                    err64, scale64 = max_err(got, ref64)
+                    diff_whole = float((got - b12).abs().max())
+                    ok = (err <= 2e-5 * scale and err64 <= 2e-5 * scale64
+                          and diff_whole == 0.0)
+                    _line(name, grid=grid.tag, R=R, max_abs_err=f"{err:.3e}",
+                          max_abs_err_f64=f"{err64:.3e}",
+                          scale=f"{scale:.3e}", tol="2e-5*scale",
+                          max_diff_to_whole_grid_kernel=f"{diff_whole:.3e}",
+                          tol_whole="0 (same bits)", ok=ok)
+                    if not ok:
+                        raise AssertionError(
+                            f"{name} at {grid.tag} R={R}: kernel error "
+                            f"{err:.3e} (plain) / {err64:.3e} (f64 dense) "
+                            f"exceeds 2e-5*{scale:.3e}, or the strips "
+                            f"differ from the whole-grid kernel by "
+                            f"{diff_whole:.3e}")
+                    if grid is main_strip_grid[name] and R == RANKS:
+                        report[name] = {"max_abs_err": err}
+            # the same on bf16 fields
+            for grid in (g4, g32, g64):
+                a = inputs(grid, bf16)[whole[name]]
+                b12 = kernel_fns[whole[name]][0](grid, *a)
+                for R in (1, 2, 4):
+                    got = on_strips(name, kfn, grid, R, a)
+                    ref = on_strips(name, pfn, grid, R, a)
+                    torch.cuda.synchronize()
+                    ok, err, scale = bf16_ok(got, ref)
+                    same = torch.equal(got, b12)
+                    _line(name, dtype="bfloat16", grid=grid.tag, R=R,
+                          max_abs_err=f"{err:.3e}", scale=f"{scale:.3e}",
+                          tol=bf16_tol, same_bits_as_whole_grid_kernel=same,
+                          ok=ok and same)
+                    if not (ok and same):
+                        raise AssertionError(
+                            f"{name} at {grid.tag} R={R}, bf16: kernel error "
+                            f"{err:.3e} exceeds {bf16_tol} (scale "
+                            f"{scale:.3e}), or the strips are not the "
+                            f"whole-grid kernel's bits ({same})")
+                    if grid is main_strip_grid[name] and R == RANKS:
+                        report[name + "_bf16"] = {"max_abs_err": err}
+
+        walls.mark("7_strip_checks")
+
+        # ---- 8. strip timings (rank 0's strip of R=2) ----
+        for dt, sfx in ((torch.float32, ""), (bf16, "_bf16")):
+            for name, (kfn, pfn) in strip_fns.items():
+                for grid in ((g32, g64) if name == "apply_system_sharded"
+                             else (g64,)):
+                    rows = row_strips(grid.Ngx, RANKS, grid.P)[0]
+                    a = strip_args(name, grid, rows,
+                                   inputs(grid, dt)[whole[name]])
+                    m = measure(name, grid, rows, kfn, pfn, a)
+                    show(name, grid, m,
+                         **({"dtype": "bfloat16"} if sfx else {}), R=RANKS,
+                         strip_rows=f"{rows[0]}:{rows[1]}")
+                    if grid is main_strip_grid[name]:
+                        report[name + sfx].update(m)
+
+        walls.mark("8_strip_timings")
+        return bf16_path()
+
+    # ---- 8b. the bf16 path ----
+    def bf16_path():
+        """Phase 8b (module docstring); returns its launch counts."""
+        def power(apply, x):
+            lam = None
+            for _ in range(BF16_POWER_STEPS):
+                y = apply(x).float()
+                lam = float(y.abs().max())
+                x = (y / lam).to(x.dtype)
+            return lam
+
+        def paths(dt):
+            """(name, apply, start) of each kernel's power iteration."""
+            a1 = inputs(g32, dt)["apply_system"]
+            a2 = inputs(g64, dt)["apply_coupled_system"]
+            return (
+                ("apply_system", lambda x: kernels.apply_system_best(
+                    g32, a1[0], a1[1], x, a1[3]), a1[2]),
+                ("apply_coupled_system",
+                 lambda x: kernels.apply_coupled_system_best(g64, x, *a2[1:]),
+                 a2[0]),
+                ("apply_system_sharded", on_strips_of(
+                    "apply_system_sharded", g32, a1, 2), a1[2]),
+                ("apply_coupled_system_sharded", on_strips_of(
+                    "apply_coupled_system_sharded", g64, a2, 0), a2[0]))
+
+        def on_strips_of(name, grid, a, i):
+            """The decomposed apply: x in slot i of a, on each strip."""
+            fn = strip_fns[name][0]
+            return lambda x: torch.cat([
+                fn(*strip_args(name, grid, rows, a[:i] + (x,) + a[i + 1:]
+                               )).reshape(-1, (rows[1] - rows[0]) * grid.Ngy)
+                for rows in row_strips(grid.Ngx, RANKS, grid.P)],
+                dim=1).reshape(-1)
+
+        runs = paths(bf16)
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        lams = {name: power(apply, x) for name, apply, x in runs}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        lam32 = {name: power(apply, x) for name, apply, x in paths(
+            torch.float32)}
+        want = {name + "_bf16": BF16_POWER_STEPS * (
+            RANKS if name.endswith("_sharded") else 1) for name in lams}
+        ok = all(counts[k] == want.get(k, 0) for k in counts) and all(
+            np.isfinite(lams[k]) and abs(lams[k] - lam32[k])
+            <= 0.02 * abs(lam32[k]) for k in lams)
+        _line("bf16_path", steps=BF16_POWER_STEPS, wall_s=f"{wall:.3f}",
+              estimates={k: f"{v:.5g}" for k, v in lams.items()},
+              estimates_f32={k: f"{v:.5g}" for k, v in lam32.items()},
+              launches=counts, ok=ok)
+        if not ok:
+            raise AssertionError(f"bf16 path failed: launches {counts} "
+                                 f"(want {want}), estimates {lams} against "
+                                 f"f32 {lam32}")
+        walls.mark("8b_bf16_path")
+        return counts
+
+    if kernels_only:
+        strip_phases()
+        walls.show()
+        return
 
     # ---- 5. reference configuration (de Vahl Davis, P=4 8×8) ----
     xp, yp = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101),
@@ -713,59 +942,8 @@ def main():
                                  launches=launches)}
     walls.mark("6_north_star")
 
-    # ---- 7. kernels B3/B4 on row strips, halos cut from the full field ----
-    main_strip_grid = {"apply_system_sharded": g32,
-                       "apply_coupled_system_sharded": g64}
-
-    def on_strips(name, fn, grid, R, a):
-        """The strips' outputs in the whole grid's layout."""
-        outs = [fn(*strip_args(name, grid, rows, a)).reshape(-1, (
-            rows[1] - rows[0]) * grid.Ngy)
-            for rows in row_strips(grid.Ngx, R, grid.P)]
-        return torch.cat(outs, dim=1).reshape(-1)
-
-    for name, (kfn, pfn) in strip_fns.items():
-        for grid in (g4, g32, g64):
-            a32 = inputs(grid, torch.float32)[whole[name]]
-            a64 = inputs(grid, torch.float64)[whole[name]]
-            ref64 = kernel_fns[whole[name]][2](grid, *a64)
-            b12 = kernel_fns[whole[name]][0](grid, *a32)
-            for R in (1, 2, 4):
-                got = on_strips(name, kfn, grid, R, a32)
-                ref = on_strips(name, pfn, grid, R, a32)
-                torch.cuda.synchronize()
-                err, scale = max_err(got, ref)
-                err64, scale64 = max_err(got, ref64)
-                diff_whole = float((got - b12).abs().max())
-                ok = (err <= 2e-5 * scale and err64 <= 2e-5 * scale64
-                      and diff_whole == 0.0)
-                _line(name, grid=grid.tag, R=R, max_abs_err=f"{err:.3e}",
-                      max_abs_err_f64=f"{err64:.3e}", scale=f"{scale:.3e}",
-                      tol="2e-5*scale", max_diff_to_whole_grid_kernel=
-                      f"{diff_whole:.3e}", tol_whole="0 (same bits)", ok=ok)
-                if not ok:
-                    raise AssertionError(
-                        f"{name} at {grid.tag} R={R}: kernel error "
-                        f"{err:.3e} (plain) / {err64:.3e} (f64 dense) "
-                        f"exceeds 2e-5*{scale:.3e}, or the strips differ "
-                        f"from the whole-grid kernel by {diff_whole:.3e}")
-                if grid is main_strip_grid[name] and R == RANKS:
-                    report[name] = {"max_abs_err": err}
-
-    walls.mark("7_strip_checks")
-
-    # ---- 8. strip timings (rank 0's strip of R=2) ----
-    for name, (kfn, pfn) in strip_fns.items():
-        for grid in (g32, g64) if name == "apply_system_sharded" else (g64,):
-            rows = row_strips(grid.Ngx, RANKS, grid.P)[0]
-            a = strip_args(name, grid, rows,
-                           inputs(grid, torch.float32)[whole[name]])
-            m = measure(name, grid, rows, kfn, pfn, a)
-            show(name, grid, m, R=RANKS, strip_rows=f"{rows[0]}:{rows[1]}")
-            if grid is main_strip_grid[name]:
-                report[name].update(m)
-
-    walls.mark("8_strip_timings")
+    # ---- 7., 8., 8b. ----
+    bf16_counts = strip_phases()
 
     # ---- 9. run_parallel, one process per rank ----
     ranks = run_ranks(beside)
@@ -806,7 +984,7 @@ def main():
     walls.show()
 
     rows = []
-    for name, src, replaces, n in (
+    kernel_rows = (
             ("apply_system", "sem_tpu_torch/csrc/apply_system.cu",
              "sem_tpu/ops/pallas_kernels.py:104", launches["apply_system"]),
             ("apply_coupled_system", "sem_tpu_torch/csrc/coupled_system.cu",
@@ -818,18 +996,30 @@ def main():
             ("apply_coupled_system_sharded",
              "sem_tpu_torch/csrc/coupled_system.cu",
              "sem_tpu/ops/pallas_kernels.py:630",
-             r0["launches"]["apply_coupled_system_sharded"])):
+             r0["launches"]["apply_coupled_system_sharded"]))
+    # the bf16 rows: phase 8b's launches; by path, every solver path's bf16
+    # count (phases 6 and 9 included)
+    solver_paths = dict(by_path, north_star=launches,
+                        run_parallel_rank0=r0["launches"])
+    for name, src, replaces, n in kernel_rows + tuple(
+            (name + "_bf16", src, replaces, bf16_counts[name + "_bf16"])
+            for name, src, replaces, _ in kernel_rows):
         r = report[name]
+        low = name.endswith("_bf16")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": n,
-                     "launches_by_path": {path: counts.get(name, 0)
-                                          for path, counts in by_path.items()},
+                     "replaces": replaces,
+                     "dtype": "bfloat16" if low else "float32",
+                     "launches": n,
+                     "launches_by_path": {
+                         path: counts.get(name, 0) for path, counts in (
+                             solver_paths if low else by_path).items()},
                      "max_abs_err": r["max_abs_err"],
                      "ms": 1e-3 * r["call_us"],
                      "plain_ms": 1e-3 * r["plain_us"],
                      "bound_ms": 1e-3 * r["bound_us"],
                      "bound_by": r["bound_by"],
-                     "library_ms": 1e-3 * r["library_us"],
+                     "library_ms": (None if r["library_us"] is None
+                                    else 1e-3 * r["library_us"]),
                      "device_ms": 1e-3 * r["device_us"],
                      "plain_device_ms": 1e-3 * r["plain_device_us"]})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2397,6 +2587,10 @@ if __name__ == "__main__":
                     help="instead of the smoke run: one PTC march of the "
                          "main path's grids at this Ra with velo_inner=5 "
                          "(Ra=1e6 takes minutes)")
+    ap.add_argument("--kernels", action="store_true",
+                    help="instead of the smoke run: phases 1-4, 7, 8 and 8b "
+                         "alone (the kernel checks and timings at f32 and "
+                         "bf16, the bf16 path)")
     ap.add_argument("--ns-options", action="store_true",
                     help="instead of the smoke run: phases 14-16 alone (the "
                          "Schur blocks, Uzawa, assemble.py)")
@@ -2424,6 +2618,8 @@ if __name__ == "__main__":
         parallel_main()
     elif a.krylov:
         krylov_main()
+    elif a.kernels:
+        main(kernels_only=True)
     elif a.ns_options:
         ns_options_main()
     elif a.adjoint:

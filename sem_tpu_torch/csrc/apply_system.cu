@@ -1,4 +1,5 @@
-// Kernels B1 and B3: the fused SEM system apply on Hopper (sm_90a), f32.
+// Kernels B1 and B3: the fused SEM system apply on Hopper (sm_90a), on f32
+// or bf16 fields (tile.cuh: bf16 operands, f32 arithmetic, one rounding).
 //
 //   y = (K + c·(u∂x + v∂y)) w
 //     = (K1x W)·m1y + m1x·(W K1yᵀ) + c·[u∘(G1x W)·m1y + v∘m1x·(W G1yᵀ)]
@@ -42,7 +43,10 @@
 // u, v and m1x are loaded into registers before the staging, so their
 // latency hides behind it.  The sums keep the untiled design's fmaf chains
 // (ascending taps) and the epilogue is tile.cuh's system_node, so the bits
-// are the untiled design's, and a strip's rows are the whole grid's.
+// are the untiled design's, and a strip's rows are the whole grid's.  At
+// bf16 the fields are read at 2 bytes (8 bytes per node of B1 instead of
+// 16) and widened where they are staged; the tap loops and the epilogue are
+// the f32 ones, on the bf16-rounded coefficients.
 #include <cuda_runtime.h>
 
 #include "tile.cuh"
@@ -54,10 +58,10 @@ using namespace sem_tpu_torch::tile;
 constexpr int NG = 4;                     // nodes per thread along a sum
 constexpr int THREADS = threads<NG>();
 
-template <int PT>
+template <int PT, class T>
 __global__ void __launch_bounds__(THREADS) apply_system_kernel(
-    float* __restrict__ out, const float* __restrict__ u,
-    const float* __restrict__ v, const float* __restrict__ w,
+    T* __restrict__ out, const T* __restrict__ u, const T* __restrict__ v,
+    const T* __restrict__ w,
     const float2* __restrict__ kgx, const float2* __restrict__ kgy,
     const float* __restrict__ m1x, const float* __restrict__ m1y,
     float coef, Window W, int Ngx, int Ngy, int p_rt)
@@ -73,14 +77,14 @@ __global__ void __launch_bounds__(THREADS) apply_system_kernel(
     for (int r = 0; r < NG; ++r) {
         const int i = min(max(i0 + warp * NG + r, W.r0), W.r1 - 1);
         const size_t n = (size_t)(i - W.r0) * Ngy + min(j, Ngy - 1);
-        un[r] = u[n];
-        vn[r] = v[n];
+        un[r] = to_f(u[n]);
+        vn[r] = to_f(v[n]);
         mx[r] = m1x[i];
     }
-    const float* const fld[1] = {w};
+    const T* const fld[1] = {w};
     float kx[1][NG], gx[1][NG];
-    tile_band_sums<PT, 1, NG>(L, fld, kgx, kgy, W, i0, j0, Ngx, Ngy, p_rt,
-                              kx, gx);
+    tile_band_sums<PT, 1, NG, T>(L, fld, kgx, kgy, W, i0, j0, Ngx, Ngy, p_rt,
+                                 kx, gx);
     if (j >= Ngy) return;
     const float my = m1y[j];
 #pragma unroll
@@ -88,28 +92,28 @@ __global__ void __launch_bounds__(THREADS) apply_system_kernel(
         const int ii = warp * NG + r, i = i0 + ii;
         if (i < W.r0) continue;
         if (i >= W.r1) break;
-        out[(size_t)(i - W.r0) * Ngy + j] = system_node(
+        store(out + (size_t)(i - W.r0) * Ngy + j, system_node(
             kx[0][r], gx[0][r], L.ysum(0, 0, ii, jj), L.ysum(0, 1, ii, jj),
-            mx[r], my, un[r], vn[r], coef);
+            mx[r], my, un[r], vn[r], coef));
     }
 }
 
-template <int PT>
-int launch(float* out, const float* u, const float* v, const float* w,
-           const float2* kgx, const float2* kgy, const float* m1x,
-           const float* m1y, float coef, Window W, int ntiles, int Ngx,
-           int Ngy, int P, cudaStream_t stream)
+template <int PT, class T>
+int launch(T* out, const T* u, const T* v, const T* w, const float2* kgx,
+           const float2* kgy, const float* m1x, const float* m1y, float coef,
+           Window W, int ntiles, int Ngx, int Ngy, int P, cudaStream_t stream)
 {
     static int smem_set[64];
     const size_t smem = Layout::bytes(1, P);
-    cudaError_t err = allow_smem(apply_system_kernel<PT>, smem, smem_set);
+    cudaError_t err = allow_smem(apply_system_kernel<PT, T>, smem, smem_set);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Ngy + TJ - 1) / TJ, ntiles);
-    apply_system_kernel<PT><<<grid, THREADS, smem, stream>>>(
+    apply_system_kernel<PT, T><<<grid, THREADS, smem, stream>>>(
         out, u, v, w, kgx, kgy, m1x, m1y, coef, W, Ngx, Ngy, P);
     return (int)cudaGetLastError();
 }
 
+template <class T>
 int dispatch(void* out, const void* u, const void* v, const void* w,
              const void* kgx, const void* kgy, const void* m1x,
              const void* m1y, float coef, Window W, int ntiles, int Ngx,
@@ -117,14 +121,14 @@ int dispatch(void* out, const void* u, const void* v, const void* w,
 {
     if (P < 1 || P > P_MAX || !W.covered(ntiles, Ngx))
         return (int)cudaErrorInvalidValue;
-    auto* fn = launch<0>;
+    auto* fn = launch<0, T>;
     switch (P) {
-        case 4: fn = launch<4>; break;
-        case 8: fn = launch<8>; break;
-        case 16: fn = launch<16>; break;
+        case 4: fn = launch<4, T>; break;
+        case 8: fn = launch<8, T>; break;
+        case 16: fn = launch<16, T>; break;
         default: break;
     }
-    return fn((float*)out, (const float*)u, (const float*)v, (const float*)w,
+    return fn((T*)out, (const T*)u, (const T*)v, (const T*)w,
               (const float2*)kgx, (const float2*)kgy, (const float*)m1x,
               (const float*)m1y, coef, W, ntiles, Ngx, Ngy, P,
               (cudaStream_t)stream);
@@ -132,9 +136,11 @@ int dispatch(void* out, const void* u, const void* v, const void* w,
 
 }  // namespace
 
-// Both entry points launch on `stream` and return the cudaError_t of the
+// The entry points launch on `stream` and return the cudaError_t of the
 // launch (0 = success, cudaErrorInvalidValue for an order outside
-// 1..P_MAX or a row window that the tiles do not cover).
+// 1..P_MAX or a row window that the tiles do not cover).  The *_bf16 ones
+// take bf16 fields and output and the same f32 coefficient tables, masses
+// and coef, rounded to bf16 on the host.
 
 // B1: the whole grid.
 extern "C" int sem_apply_system_f32(
@@ -143,9 +149,20 @@ extern "C" int sem_apply_system_f32(
     float coef, int Ngx, int Ngy, int P,
     void* stream)
 {
-    return dispatch(out, u, v, w, kgx, kgy, m1x, m1y, coef,
-                    Window{0, Ngx, 0, 0}, (Ngx + TI - 1) / TI, Ngx, Ngy, P,
-                    stream);
+    return dispatch<float>(out, u, v, w, kgx, kgy, m1x, m1y, coef,
+                           Window{0, Ngx, 0, 0}, (Ngx + TI - 1) / TI, Ngx,
+                           Ngy, P, stream);
+}
+
+extern "C" int sem_apply_system_bf16(
+    void* out, const void* u, const void* v, const void* w,
+    const void* kgx, const void* kgy, const void* m1x, const void* m1y,
+    float coef, int Ngx, int Ngy, int P,
+    void* stream)
+{
+    return dispatch<__nv_bfloat16>(out, u, v, w, kgx, kgy, m1x, m1y, coef,
+                                   Window{0, Ngx, 0, 0}, (Ngx + TI - 1) / TI,
+                                   Ngx, Ngy, P, stream);
 }
 
 // B3: rows [r0, r0+nrows) from w_ext, the strip of w with P halo rows per
@@ -159,7 +176,18 @@ extern "C" int sem_apply_system_strip_f32(
     float coef, int r0, int nrows, int tile0, int ntiles, int Ngx, int Ngy,
     int P, void* stream)
 {
-    return dispatch(out, u, v, w_ext, kgx, kgy, m1x, m1y, coef,
-                    Window{r0, r0 + nrows, r0 - P, tile0}, ntiles, Ngx, Ngy,
-                    P, stream);
+    return dispatch<float>(out, u, v, w_ext, kgx, kgy, m1x, m1y, coef,
+                           Window{r0, r0 + nrows, r0 - P, tile0}, ntiles,
+                           Ngx, Ngy, P, stream);
+}
+
+extern "C" int sem_apply_system_strip_bf16(
+    void* out, const void* u, const void* v, const void* w_ext,
+    const void* kgx, const void* kgy, const void* m1x, const void* m1y,
+    float coef, int r0, int nrows, int tile0, int ntiles, int Ngx, int Ngy,
+    int P, void* stream)
+{
+    return dispatch<__nv_bfloat16>(out, u, v, w_ext, kgx, kgy, m1x, m1y,
+                                   coef, Window{r0, r0 + nrows, r0 - P, tile0},
+                                   ntiles, Ngx, Ngy, P, stream);
 }

@@ -1,5 +1,6 @@
 // Kernels B2 and B4: the Navier-Stokes tangent saddle matvec on Hopper
-// (sm_90a), f32.
+// (sm_90a), on f32 or bf16 fields (tile.cuh: bf16 operands, f32
+// arithmetic, one rounding per output).
 //
 // For q = (du, dv, dp) with the frozen linearization (ul, vl), the convection
 // Jacobian diagonals (jxx, jxy, jyx, jyy) and the Dirichlet-row mask mb:
@@ -43,6 +44,8 @@
 // coupled_node (Jacobian diagonals and row mask in registers, each
 // pointwise field read once, each output written once, coalesced), so the
 // bits are the untiled design's, and a strip's rows are the whole grid's.
+// At bf16 the nine fields and three outputs move at 2 bytes (25 bytes per
+// node instead of 49); sums and epilogue are the f32 ones.
 #include <cuda_runtime.h>
 
 #include "tile.cuh"
@@ -54,12 +57,12 @@ using namespace sem_tpu_torch::tile;
 constexpr int NG = 4;                     // nodes per thread along a sum
 constexpr int THREADS = threads<NG>();
 
-template <int PT>
+template <int PT, class T>
 __global__ void __launch_bounds__(THREADS) coupled_system_kernel(
-    float* __restrict__ out, const float* __restrict__ q,
-    const float* __restrict__ ul, const float* __restrict__ vl,
-    const float* __restrict__ jxx, const float* __restrict__ jxy,
-    const float* __restrict__ jyx, const float* __restrict__ jyy,
+    T* __restrict__ out, const T* __restrict__ q,
+    const T* __restrict__ ul, const T* __restrict__ vl,
+    const T* __restrict__ jxx, const T* __restrict__ jxy,
+    const T* __restrict__ jyx, const T* __restrict__ jyy,
     const unsigned char* __restrict__ mb,
     const float2* __restrict__ kgx, const float2* __restrict__ kgy,
     const float* __restrict__ m1x, const float* __restrict__ m1y,
@@ -71,10 +74,10 @@ __global__ void __launch_bounds__(THREADS) coupled_system_kernel(
     const int i0 = (W.tile0 + blockIdx.y) * TI, j0 = blockIdx.x * TJ;
     const size_t Nin = (size_t)(W.in_end() - W.g_in) * Ngy;  // input field
     const size_t N = (size_t)(W.r1 - W.r0) * Ngy;            // output field
-    const float* const fld[3] = {q, q + Nin, q + 2 * Nin};
+    const T* const fld[3] = {q, q + Nin, q + 2 * Nin};
     float kx[3][NG], gx[3][NG];
-    tile_band_sums<PT, 3, NG>(L, fld, kgx, kgy, W, i0, j0, Ngx, Ngy, p_rt,
-                              kx, gx);
+    tile_band_sums<PT, 3, NG, T>(L, fld, kgx, kgy, W, i0, j0, Ngx, Ngy, p_rt,
+                                 kx, gx);
     const int warp = threadIdx.x / 32, jj = threadIdx.x % 32, j = j0 + jj;
     if (j >= Ngy) return;
     const float my = m1y[j];
@@ -94,36 +97,43 @@ __global__ void __launch_bounds__(THREADS) coupled_system_kernel(
         const float mx = m1x[i];
         const size_t n = (size_t)(i - W.r0) * Ngy + j;    // output node
         const size_t c = (size_t)(i - W.g_in) * Ngy + j;  // same in q
-        const float dun = fld[0][c], dvn = fld[1][c];
+        const float dun = to_f(fld[0][c]), dvn = to_f(fld[1][c]);
+        float ru, rv, rc;
         if (mb[n]) {
-            out[n] = dun;
-            out[N + n] = dvn;
-            out[2 * N + n] = mass_k(s[8], s[10], mx, my);
-            continue;
+            ru = dun;
+            rv = dvn;
+            rc = mass_k(s[8], s[10], mx, my);
+        } else {
+            coupled_node(s, mx, my, to_f(ul[n]), to_f(vl[n]), to_f(jxx[n]),
+                         to_f(jxy[n]), to_f(jyx[n]), to_f(jyy[n]), dun, dvn,
+                         coef, ru, rv, rc);
         }
-        coupled_node(s, mx, my, ul[n], vl[n], jxx[n], jxy[n], jyx[n], jyy[n],
-                     dun, dvn, coef, out[n], out[N + n], out[2 * N + n]);
+        store(out + n, ru);
+        store(out + N + n, rv);
+        store(out + 2 * N + n, rc);
     }
 }
 
-template <int PT>
-int launch(float* out, const float* q, const float* ul, const float* vl,
-           const float* jxx, const float* jxy, const float* jyx,
-           const float* jyy, const unsigned char* mb, const float2* kgx,
-           const float2* kgy, const float* m1x, const float* m1y, float coef,
-           Window W, int ntiles, int Ngx, int Ngy, int P, cudaStream_t stream)
+template <int PT, class T>
+int launch(T* out, const T* q, const T* ul, const T* vl, const T* jxx,
+           const T* jxy, const T* jyx, const T* jyy, const unsigned char* mb,
+           const float2* kgx, const float2* kgy, const float* m1x,
+           const float* m1y, float coef, Window W, int ntiles, int Ngx,
+           int Ngy, int P, cudaStream_t stream)
 {
     static int smem_set[64];
     const size_t smem = Layout::bytes(3, P);
-    cudaError_t err = allow_smem(coupled_system_kernel<PT>, smem, smem_set);
+    cudaError_t err = allow_smem(coupled_system_kernel<PT, T>, smem,
+                                 smem_set);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Ngy + TJ - 1) / TJ, ntiles);
-    coupled_system_kernel<PT><<<grid, THREADS, smem, stream>>>(
+    coupled_system_kernel<PT, T><<<grid, THREADS, smem, stream>>>(
         out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x, m1y, coef, W,
         Ngx, Ngy, P);
     return (int)cudaGetLastError();
 }
 
+template <class T>
 int dispatch(void* out, const void* q, const void* ul, const void* vl,
              const void* jxx, const void* jxy, const void* jyx,
              const void* jyy, const void* mb, const void* kgx,
@@ -132,26 +142,27 @@ int dispatch(void* out, const void* q, const void* ul, const void* vl,
 {
     if (P < 1 || P > P_MAX || !W.covered(ntiles, Ngx))
         return (int)cudaErrorInvalidValue;
-    auto* fn = launch<0>;
+    auto* fn = launch<0, T>;
     switch (P) {
-        case 4: fn = launch<4>; break;
-        case 8: fn = launch<8>; break;
-        case 16: fn = launch<16>; break;
+        case 4: fn = launch<4, T>; break;
+        case 8: fn = launch<8, T>; break;
+        case 16: fn = launch<16, T>; break;
         default: break;
     }
-    return fn((float*)out, (const float*)q, (const float*)ul,
-              (const float*)vl, (const float*)jxx, (const float*)jxy,
-              (const float*)jyx, (const float*)jyy, (const unsigned char*)mb,
-              (const float2*)kgx, (const float2*)kgy, (const float*)m1x,
-              (const float*)m1y, coef, W, ntiles, Ngx, Ngy, P,
-              (cudaStream_t)stream);
+    return fn((T*)out, (const T*)q, (const T*)ul, (const T*)vl,
+              (const T*)jxx, (const T*)jxy, (const T*)jyx, (const T*)jyy,
+              (const unsigned char*)mb, (const float2*)kgx,
+              (const float2*)kgy, (const float*)m1x, (const float*)m1y, coef,
+              W, ntiles, Ngx, Ngy, P, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// Both entry points launch on `stream` and return the cudaError_t of the
+// The entry points launch on `stream` and return the cudaError_t of the
 // launch (0 = success, cudaErrorInvalidValue for an order outside
-// 1..P_MAX or a row window that the tiles do not cover).
+// 1..P_MAX or a row window that the tiles do not cover).  The *_bf16 ones
+// take bf16 fields and outputs and the same f32 coefficient tables, masses
+// and coef, rounded to bf16 on the host.
 
 // B2: the whole grid; q and out are (3·Ngx·Ngy,).
 extern "C" int sem_apply_coupled_system_f32(
@@ -161,9 +172,22 @@ extern "C" int sem_apply_coupled_system_f32(
     const void* m1y, float coef,
     int Ngx, int Ngy, int P, void* stream)
 {
-    return dispatch(out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x,
-                    m1y, coef, Window{0, Ngx, 0, 0}, (Ngx + TI - 1) / TI,
-                    Ngx, Ngy, P, stream);
+    return dispatch<float>(out, q, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy,
+                           m1x, m1y, coef, Window{0, Ngx, 0, 0},
+                           (Ngx + TI - 1) / TI, Ngx, Ngy, P, stream);
+}
+
+extern "C" int sem_apply_coupled_system_bf16(
+    void* out, const void* q, const void* ul, const void* vl,
+    const void* jxx, const void* jxy, const void* jyx, const void* jyy,
+    const void* mb, const void* kgx, const void* kgy, const void* m1x,
+    const void* m1y, float coef,
+    int Ngx, int Ngy, int P, void* stream)
+{
+    return dispatch<__nv_bfloat16>(out, q, ul, vl, jxx, jxy, jyx, jyy, mb,
+                                   kgx, kgy, m1x, m1y, coef,
+                                   Window{0, Ngx, 0, 0}, (Ngx + TI - 1) / TI,
+                                   Ngx, Ngy, P, stream);
 }
 
 // B4: rows [r0, r0+nrows) from q_ext, du, dv, dp stacked, each the strip
@@ -179,7 +203,21 @@ extern "C" int sem_apply_coupled_system_strip_f32(
     const void* m1y, float coef, int r0, int nrows, int tile0, int ntiles,
     int Ngx, int Ngy, int P, void* stream)
 {
-    return dispatch(out, q_ext, ul, vl, jxx, jxy, jyx, jyy, mb, kgx, kgy, m1x,
-                    m1y, coef, Window{r0, r0 + nrows, r0 - P, tile0}, ntiles,
-                    Ngx, Ngy, P, stream);
+    return dispatch<float>(out, q_ext, ul, vl, jxx, jxy, jyx, jyy, mb, kgx,
+                           kgy, m1x, m1y, coef,
+                           Window{r0, r0 + nrows, r0 - P, tile0}, ntiles,
+                           Ngx, Ngy, P, stream);
+}
+
+extern "C" int sem_apply_coupled_system_strip_bf16(
+    void* out, const void* q_ext, const void* ul, const void* vl,
+    const void* jxx, const void* jxy, const void* jyx, const void* jyy,
+    const void* mb, const void* kgx, const void* kgy, const void* m1x,
+    const void* m1y, float coef, int r0, int nrows, int tile0, int ntiles,
+    int Ngx, int Ngy, int P, void* stream)
+{
+    return dispatch<__nv_bfloat16>(out, q_ext, ul, vl, jxx, jxy, jyx, jyy, mb,
+                                   kgx, kgy, m1x, m1y, coef,
+                                   Window{r0, r0 + nrows, r0 - P, tile0},
+                                   ntiles, Ngx, Ngy, P, stream);
 }

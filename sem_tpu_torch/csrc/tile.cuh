@@ -34,7 +34,7 @@
 //      sums) and with P halo columns (sy, for the y sums), and the
 //      coefficient pairs of the tile's rows (cx) and columns (cy), in shared
 //      memory, once, with coalesced asynchronous copies (cp.async; zeros
-//      outside the grid).
+//      outside the grid; a bf16 field with widening loads, see stage).
 //   2. y sums: lane = row of the tile, each warp takes NG consecutive
 //      columns.  The taps depend on the column only, so they are the same
 //      for the 32 lanes of a warp: no divergence, every coefficient read is
@@ -45,6 +45,17 @@
 //      rows, the same way; the sums stay in registers.
 //   4. After a barrier the caller's epilogue reads its nodes' y sums from sk
 //      and writes the outputs, coalesced along j.
+// Field type T: float, or __nv_bfloat16 as the reference's Pallas kernels
+// take it.  A bf16 field is widened to f32 where it is staged (stage) and
+// where the epilogue loads its pointwise values (to_f); everything in shared
+// memory, every product and every sum is f32, and the output is rounded to
+// the field type once, where it is written (store).  The host hands a bf16
+// launch the coefficient tables, masses and coef rounded to bf16 and held as
+// f32 (sem_tpu_torch.ops.kernels), so a bf16 launch computes the reference
+// kernel's bf16 function: bf16 operands, f32 arithmetic, one rounding.  At
+// f32, stage, to_f and store are a cp.async, the identity and a plain
+// store, so the f32 kernels keep the bits recorded for them.
+//
 // P is a template parameter for the orders the repo runs (4, 8, 16).  There
 // a warp's NG nodes lie in one element, so every tap loop has a trip count
 // known at compile time and no per-tap test: the element's P+1 nodes for
@@ -54,6 +65,7 @@
 // at run time and tests each tap against tap_span.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace sem_tpu_torch {
@@ -113,6 +125,34 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 __device__ __forceinline__ void cp_async_wait_all()
 {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One field value into shared memory as f32, zero when !valid (src is then
+// not read, but must be a valid address): a 4-byte cp.async for an f32
+// field; for bf16 a load widened with __bfloat162float (cp.async copies
+// bytes, it cannot widen), visible to the block after the same barrier.
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      bool valid)
+{
+    cp_async4(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      bool valid)
+{
+    *dst = valid ? __bfloat162float(*src) : 0.f;
+}
+
+// A pointwise value as f32, and an output rounded to the field type.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x)
+{
+    return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x)
+{
+    *p = __float2bfloat16_rn(x);
 }
 
 // Shared-memory layout of a block for NF fields at order P (floats).
@@ -246,9 +286,9 @@ __device__ __forceinline__ void line_sums(
 // row g of field f is fld[f] + (g - W.g_in)·Ngy.  Returns in kx/gx the x
 // sums of this thread's nodes (i0 + warp*NG + g, j0 + lane); their y sums
 // are L.ysum(f, 0/1, warp*NG + g, lane).
-template <int PT, int NF, int NG>
+template <int PT, int NF, int NG, class T>
 __device__ __forceinline__ void tile_band_sums(
-    const Layout& L, const float* const (&fld)[NF],
+    const Layout& L, const T* const (&fld)[NF],
     const float2* __restrict__ kgx, const float2* __restrict__ kgy,
     const Window& W, int i0, int j0, int Ngx, int Ngy, int p_rt,
     float (&kx)[NF][NG], float (&gx)[NF][NG])
@@ -279,21 +319,21 @@ __device__ __forceinline__ void tile_band_sums(
             for (int a = warp; a < TI + 2 * P; a += NWARP) {
                 const int i = i0 - P + a;
                 const bool ok = i >= g_lo && i < g_hi && j < Ngy;
-                cp_async4(sx + a * TJ,
-                          ok ? fld[f] + (size_t)(i - W.g_in) * Ngy + j
-                             : fld[f], ok);
+                stage(sx + a * TJ,
+                      ok ? fld[f] + (size_t)(i - W.g_in) * Ngy + j : fld[f],
+                      ok);
             }
             for (int ii = warp; ii < TI; ii += NWARP) {
                 const int i = i0 + ii;
                 const bool row_ok = i >= g_lo && i < g_hi;
                 float* sy = L.sy + f * TI * L.syp + ii * L.syp;
-                const float* row =
+                const T* row =
                     fld[f] + (size_t)(row_ok ? i - W.g_in : 0) * Ngy;
 #pragma unroll
                 for (int b = lane; b < TJ + 2 * P; b += 32) {
                     const int jb = j0 - P + b;
                     const bool ok = row_ok && jb >= 0 && jb < Ngy;
-                    cp_async4(sy + b, ok ? row + jb : fld[f], ok);
+                    stage(sy + b, ok ? row + jb : fld[f], ok);
                 }
             }
         }

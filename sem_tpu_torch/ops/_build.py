@@ -48,6 +48,10 @@ _SIGNATURES = {
     # r0, nrows, tile0, ntiles, Ngx, Ngy, P, stream
     "sem_apply_coupled_system_strip_f32": [_P] * 13 + [_F] + [_I] * 7 + [_P],
 }
+# the bf16 entry points take the same arguments (bf16 fields and outputs,
+# the same f32 coefficient tables, holding bf16-rounded values)
+_SIGNATURES.update({name[:-3] + "bf16": args
+                    for name, args in list(_SIGNATURES.items())})
 
 
 def build_dir() -> pathlib.Path:

@@ -17,17 +17,28 @@ coefficient is a structural zero.  They take orders ``1 ≤ P ≤ 64``
 kernels B3/B4 of :mod:`sem_tpu_torch.ops.sharded` are the same kernels on a
 row window, launched on the tiles of :func:`row_window_tiles`.
 
-A wrapper launches its kernel for a CUDA float32 tensor and raises for any
-other dtype on the card; a build or launch failure raises.  Only a tensor on
-the CPU takes the plain version (``*_plain``), which computes the same
-function with plain tensor ops in the compact band form.  Each launch adds one
-to :data:`LAUNCHES`, which also counts the row-strip kernels B3/B4 of
-:mod:`sem_tpu_torch.ops.sharded`, each under its own name.  The dispatchers
-``apply_system_best`` / ``apply_coupled_system_best`` send float64 fields to
-the dense two-matmul path of :mod:`sem_tpu_torch.operators`, as the reference
-does.
+Field dtypes.  Like the reference's Pallas kernels, B1-B4 take float32 or
+bfloat16 fields (every floating operand of a call in one dtype; B2's mask
+is bool).  At bfloat16 they compute the reference kernel's bf16 function:
+the fields, the band coefficients, the 1D masses and ``coef`` rounded to
+bf16, every product and sum in f32, one rounding to bf16 at the output
+(:func:`band_operators` and :func:`tile_coefficients` hold those rounded
+constants as f32).  The solvers' chunks are f32; bf16 serves speed runs.
+
+A wrapper launches its kernel for CUDA tensors of those dtypes and raises
+for any other dtype on the card; a build or launch failure raises.  Only a
+tensor on the CPU takes the plain version (``*_plain``), which computes the
+same function with plain tensor ops in the compact band form.  Each launch
+adds one to :data:`LAUNCHES` under the wrapper's name, and a bf16 launch
+under that name with ``_bf16`` appended (``apply_system_bf16``, ...); the
+row-strip kernels B3/B4 of :mod:`sem_tpu_torch.ops.sharded` count there
+too, each under its own name.  The dispatchers ``apply_system_best`` /
+``apply_coupled_system_best`` send float64 fields to the dense two-matmul
+path of :mod:`sem_tpu_torch.operators`, as the reference does.
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -46,8 +57,9 @@ __all__ = ["LAUNCHES", "P_MAX", "TILE", "band_storage", "band_operators",
 
 #: kernel launches since the counts were last reset (by name); the plain
 #: versions and the dense path never add to them
-LAUNCHES = {"apply_system": 0, "apply_coupled_system": 0,
-            "apply_system_sharded": 0, "apply_coupled_system_sharded": 0}
+LAUNCHES = {name + sfx: 0 for sfx in ("", "_bf16") for name in (
+    "apply_system", "apply_coupled_system", "apply_system_sharded",
+    "apply_coupled_system_sharded")}
 
 #: the largest order the kernels B1-B4 take (the reference's limit;
 #: ``P_MAX`` in ``csrc/tile.cuh``)
@@ -89,41 +101,59 @@ def band_tap_ranges(n: int, P: int) -> tuple[np.ndarray, np.ndarray]:
     return k0 - i + P, k1 - i + P + 1
 
 
+def _field_const(grid: Grid2D, key, host, dtype, device) -> torch.Tensor:
+    """The grid constant ``host()`` as B1-B4 read it for fields of
+    ``dtype``, cached on the grid: in ``dtype`` for float32 and float64; for
+    bfloat16 rounded to bf16 (as the reference's kernel casts its constants
+    to the field dtype) and held as float32, in which its arithmetic runs."""
+    if dtype != torch.bfloat16:
+        return device_const(grid, key, host, dtype, device)
+    return device_const(
+        grid, (key, "bf16"),
+        lambda: torch.tensor(np.ascontiguousarray(host())).to(
+            torch.bfloat16).float().numpy(),
+        torch.float32, device)
+
+
 def band_operators(grid: Grid2D, dtype, device) -> dict:
     """Band-stored ``K1x, G1x`` (``(Ngx, 2P+1)``), transposed band-stored
-    ``K1y, G1y`` (``(2P+1, Ngy)``) and the 1D mass vectors; cached on the
-    grid per dtype and device.  The plain versions read the band tables (no
-    kernel does: the kernels read :func:`tile_coefficients`), the kernels
-    the mass vectors."""
+    ``K1y, G1y`` (``(2P+1, Ngy)``) and the 1D mass vectors for fields of
+    ``dtype`` (bfloat16: bf16-rounded float32 values, :func:`_field_const`);
+    cached on the grid per dtype and device.  The plain versions read the
+    band tables (no kernel does: the kernels read
+    :func:`tile_coefficients`), the kernels the mass vectors."""
     P = grid.P
 
     def const(name, host):
-        return device_const(grid, ("band", name), host, dtype, device)
+        return _field_const(grid, ("band", name), host, dtype, device)
 
     return {
         "kxb": const("kxb", lambda: band_storage(grid.K1x, P)),
         "gxb": const("gxb", lambda: band_storage(grid.G1x, P)),
         "kybT": const("kybT", lambda: band_storage(grid.K1y, P).T),
         "gybT": const("gybT", lambda: band_storage(grid.G1y, P).T),
-        "m1x": ops.grid_const(grid, "m1x", dtype, device),
-        "m1y": ops.grid_const(grid, "m1y", dtype, device),
+        "m1x": _field_const(grid, "m1x", lambda: grid.m1x, dtype, device),
+        "m1y": _field_const(grid, "m1y", lambda: grid.m1y, dtype, device),
     }
 
 
-def tile_coefficients(grid: Grid2D, device) -> dict:
-    """The f32 coefficient tables of the tiled kernels B1-B4: the interleaved
-    pairs ``kgx[i, t] = (K1x, G1x)[i, i-P+t]`` (``(Ngx + TILE, 2P+1, 2)``)
-    and ``kgy`` of the y operators, with :data:`TILE` rows of zeros at the
-    end (a tile's reads past the grid's edge stay inside them); cached on the
-    grid per device."""
+def tile_coefficients(grid: Grid2D, device, dtype=torch.float32) -> dict:
+    """The f32 coefficient tables of the tiled kernels B1-B4 for fields of
+    ``dtype`` (bfloat16: the values rounded to bf16): the interleaved pairs
+    ``kgx[i, t] = (K1x, G1x)[i, i-P+t]`` (``(Ngx + TILE, 2P+1, 2)``) and
+    ``kgy`` of the y operators, with :data:`TILE` rows of zeros at the end (a
+    tile's reads past the grid's edge stay inside them); cached on the grid
+    per device and dtype."""
     P = grid.P
+    if dtype != torch.bfloat16:
+        dtype = torch.float32
 
     def pairs(K, G):
         kg = np.stack([band_storage(K, P), band_storage(G, P)], axis=-1)
         return np.concatenate([kg, np.zeros((TILE,) + kg.shape[1:])])
 
-    return {name: device_const(grid, ("tile", name), lambda: pairs(K, G),
-                               torch.float32, device)
+    return {name: _field_const(grid, ("tile", name), lambda: pairs(K, G),
+                               dtype, device)
             for name, K, G in (("kgx", grid.K1x, grid.G1x),
                                ("kgy", grid.K1y, grid.G1y))}
 
@@ -138,16 +168,38 @@ def row_window_tiles(r0: int, r1: int) -> tuple[int, int]:
     return t0, (r1 - 1) // TILE - t0 + 1
 
 # ----------------------------- plain versions ----------------------------- #
-def _band_products(grid: Grid2D, Fs: torch.Tensor, rows=None):
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A pointwise operand of a bf16 call as the reference's kernel reads
+    it: rounded to bf16, computed on in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_coef(coef) -> float:
+    """``coef`` rounded to bf16 as torch's cast rounds (through f32, to
+    nearest even), as the reference's kernel passes it; on the scalar's
+    bits, which costs a launch less host time than a torch cast."""
+    try:
+        b = struct.unpack("<I", struct.pack("<f", float(coef)))[0]
+    except OverflowError:            # rounds to ±inf in f32
+        b = 0xFF800000 if coef < 0 else 0x7F800000
+    if b & 0x7FFFFFFF > 0x7F800000:
+        return float("nan")
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", b))[0]
+
+
+def _band_products(grid: Grid2D, Fs: torch.Tensor, rows=None, dtype=None):
     """``(K1x F, G1x F, F K1yᵀ, F G1yᵀ)`` for a batch ``Fs (B, Ngx, Ngy)``
     from the band form: each direction is one contraction of the band
     coefficients with the (2P+1)-tap windows of the zero-padded field.
 
     With ``rows=(r0, r1)``, ``Fs (B, r1-r0+2P, Ngy)`` is a row strip with
     ``P`` halo rows on each side (zeros beyond the grid), and the products
-    are those of the global rows ``r0..r1-1``."""
+    are those of the global rows ``r0..r1-1``.  ``dtype`` is the fields'
+    dtype of the call (default ``Fs.dtype``): for bfloat16, ``Fs`` is the
+    fields upcast to f32 and the coefficients are rounded to bf16."""
     P = grid.P
-    c = band_operators(grid, Fs.dtype, Fs.device)
+    c = band_operators(grid, dtype or Fs.dtype, Fs.device)
     if rows is None:
         r0, r1 = 0, grid.Ngx
         Fc, Fs = Fs, F.pad(Fs, (0, 0, P, P))
@@ -164,19 +216,29 @@ def _band_products(grid: Grid2D, Fs: torch.Tensor, rows=None):
 
 
 def _system_plain(grid: Grid2D, u, v, Fs, coef, rows=None):
-    """B1's function on the rows of ``Fs`` (see :func:`_band_products`)."""
-    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(grid, Fs, rows)
+    """B1's function on the rows of ``Fs`` (see :func:`_band_products`); at
+    bfloat16 the reference kernel's bf16 function (module docstring)."""
+    dt = Fs.dtype
+    if dt == torch.bfloat16:
+        u, v, Fs, coef = _widen(u), _widen(v), Fs.float(), _bf16_coef(coef)
+    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(grid, Fs, rows, dt)
     K2d = Kx[0] * m1y + m1x * Ky[0]
     shape = K2d.shape
     return (K2d + coef * (u.reshape(shape) * (Gx[0] * m1y)
-                          + v.reshape(shape) * (m1x * Gy[0]))).reshape(-1)
+                          + v.reshape(shape) * (m1x * Gy[0]))
+            ).reshape(-1).to(dt)
 
 
 def _coupled_plain(grid: Grid2D, Qs, ul, vl, jac, mb, coef, rows=None):
     """B2's function on the rows of the three fields ``Qs`` (see
     :func:`_band_products`); ``ul``, ``vl``, ``jac``, ``mb`` and the output
-    cover the same rows."""
-    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(grid, Qs, rows)
+    cover the same rows.  At bfloat16 the reference kernel's bf16 function
+    (module docstring)."""
+    dt = Qs.dtype
+    if dt == torch.bfloat16:
+        ul, vl, jac = _widen(ul), _widen(vl), tuple(map(_widen, jac))
+        Qs, coef = Qs.float(), _bf16_coef(coef)
+    Kx, Gx, Ky, Gy, m1x, m1y = _band_products(grid, Qs, rows, dt)
     n = Kx.shape[1] * Kx.shape[2]
     K2d = (Kx * m1y + m1x * Ky).reshape(3, n)
     gx = (Gx * m1y).reshape(3, n)
@@ -191,7 +253,7 @@ def _coupled_plain(grid: Grid2D, Qs, ul, vl, jac, mb, coef, rows=None):
         + gy[2]
     drc = gx[0] + gy[1]
     return torch.cat([torch.where(mb, du, dru), torch.where(mb, dv, drv),
-                      torch.where(mb, K2d[2], drc)])
+                      torch.where(mb, K2d[2], drc)]).to(dt)
 
 
 def apply_system_plain(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
@@ -208,25 +270,43 @@ def apply_coupled_system_plain(grid: Grid2D, q, ul, vl, jac, mb, coef
 
 
 # -------------------------------- wrappers -------------------------------- #
-def _check(name: str, tensors, shapes, dtypes):
-    dev = tensors[0].device
-    for t, shape, dt in zip(tensors, shapes, dtypes):
-        if t.dtype != dt:
-            raise TypeError(f"{name}: the CUDA kernel takes {dt}, got "
+#: the C entry points' suffix by field dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check(name: str, tensors, shapes, masks: int = 0) -> str:
+    """Check a launch's operands: contiguous, on one device, of the given
+    shapes; the fields float32 or bfloat16, all in the first one's dtype;
+    the last ``masks`` tensors bool.  Returns the dtype's suffix of the C
+    entry points (:data:`_SUFFIX`)."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    if dt not in _SUFFIX:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                        f"fields, got {dt}")
+    nf = len(tensors) - masks
+    for k, (t, shape) in enumerate(zip(tensors, shapes)):
+        want = dt if k < nf else torch.bool
+        if t.dtype != want:
+            raise TypeError(f"{name}: the CUDA kernel takes {want} there "
+                            f"(the fields' dtype, or a bool mask), got "
                             f"{t.dtype}")
         if t.device != dev or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors on {dev} "
                              f"of shape {shape}, got {tuple(t.shape)} on "
                              f"{t.device}")
+    return _SUFFIX[dt]
 
 
 _FNS = {}   # the library's C entry points, looked up once
 
 
-def _launch(name: str, fn_name: str, device, *args):
-    """Call the C entry point ``fn_name`` on ``device``'s current stream
-    (the raw handle: building a ``torch.cuda.Stream`` object costs more host
-    time than the launch); raise if the launch failed."""
+def _launch(name: str, entry: str, sfx: str, device, *args):
+    """Call the C entry point ``{entry}_{sfx}`` (``sfx`` from :func:`_check`)
+    on ``device``'s current stream (the raw handle: building a
+    ``torch.cuda.Stream`` object costs more host time than the launch);
+    raise if the launch failed.  Counts one launch under ``name``, or
+    ``{name}_bf16`` for a bf16 one."""
+    fn_name = f"{entry}_{sfx}"
     fn = _FNS.get(fn_name)
     if fn is None:
         from sem_tpu_torch.ops import _build
@@ -239,61 +319,69 @@ def _launch(name: str, fn_name: str, device, *args):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    LAUNCHES[name] += 1
+    LAUNCHES[name if sfx == "f32" else f"{name}_{sfx}"] += 1
 
 
-def _band_ptrs(grid: Grid2D, device) -> tuple:
-    """Device addresses of the f32 constants of B1-B4 (kgx, kgy, m1x,
-    m1y), cached on the grid beside the tensors that own them."""
+def _band_ptrs(grid: Grid2D, device, dtype=torch.float32) -> tuple:
+    """Device addresses of the f32 constants of B1-B4 (kgx, kgy, m1x, m1y)
+    for fields of ``dtype`` (bfloat16: the bf16-rounded tables), cached on
+    the grid beside the tensors that own them."""
     cache = grid.__dict__.setdefault("_band_ptrs", {})
-    ptrs = cache.get(device)
+    ptrs = cache.get((device, dtype))
     if ptrs is None:
         if not 1 <= grid.P <= P_MAX:
             raise ValueError(f"the CUDA kernels B1-B4 take orders 1 <= P <= "
                              f"{P_MAX}, got P={grid.P}")
-        t = tile_coefficients(grid, device)
-        c = band_operators(grid, torch.float32, device)
-        ptrs = cache[device] = (t["kgx"].data_ptr(), t["kgy"].data_ptr(),
-                                c["m1x"].data_ptr(), c["m1y"].data_ptr())
+        t = tile_coefficients(grid, device, dtype)
+        c = band_operators(grid, dtype, device)
+        ptrs = cache[(device, dtype)] = (
+            t["kgx"].data_ptr(), t["kgy"].data_ptr(), c["m1x"].data_ptr(),
+            c["m1y"].data_ptr())
     return ptrs
 
 
+def _launch_coef(coef, dtype) -> float:
+    """``coef`` as a launch for fields of ``dtype`` passes it."""
+    return _bf16_coef(coef) if dtype == torch.bfloat16 else float(coef)
+
+
 def apply_system_kernel(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
-    """Kernel B1 on a CUDA tensor (float32 only); the plain version for a
-    tensor on the CPU."""
+    """Kernel B1 on CUDA tensors (float32 or bfloat16 fields, one dtype);
+    the plain version for tensors on the CPU."""
     if w.device.type == "cpu":
         return apply_system_plain(grid, u, v, w, coef)
-    f32, shape = torch.float32, (grid.N,)
-    _check("apply_system", (w, u, v), (shape,) * 3, (f32,) * 3)
+    sfx = _check("apply_system", (w, u, v), ((grid.N,),) * 3)
     out = torch.empty_like(w)
-    _launch("apply_system", "sem_apply_system_f32", w.device,
+    _launch("apply_system", "sem_apply_system", sfx, w.device,
             out.data_ptr(), u.data_ptr(), v.data_ptr(), w.data_ptr(),
-            *_band_ptrs(grid, w.device), float(coef), grid.Ngx, grid.Ngy,
-            grid.P)
+            *_band_ptrs(grid, w.device, w.dtype),
+            _launch_coef(coef, w.dtype), grid.Ngx, grid.Ngy, grid.P)
     return out
 
 
 def apply_coupled_system_kernel(grid: Grid2D, q, ul, vl, jac, mb, coef
                                 ) -> torch.Tensor:
-    """Kernel B2 on CUDA tensors (float32 fields, bool mask); the plain
-    version for tensors on the CPU.  The pressure-pin row is the caller's."""
+    """Kernel B2 on CUDA tensors (float32 or bfloat16 fields, one dtype;
+    bool mask); the plain version for tensors on the CPU.  The pressure-pin
+    row is the caller's."""
     if q.device.type == "cpu":
         return apply_coupled_system_plain(grid, q, ul, vl, jac, mb, coef)
-    f32, N = torch.float32, grid.N
-    _check("apply_coupled_system", (q, ul, vl, *jac, mb),
-           ((3 * N,),) + ((N,),) * 7, (f32,) * 7 + (torch.bool,))
+    N = grid.N
+    sfx = _check("apply_coupled_system", (q, ul, vl, *jac, mb),
+                 ((3 * N,),) + ((N,),) * 7, masks=1)
     out = torch.empty_like(q)
-    _launch("apply_coupled_system", "sem_apply_coupled_system_f32", q.device,
-            out.data_ptr(), q.data_ptr(), ul.data_ptr(), vl.data_ptr(),
-            *(j.data_ptr() for j in jac), mb.data_ptr(),
-            *_band_ptrs(grid, q.device), float(coef), grid.Ngx, grid.Ngy,
-            grid.P)
+    _launch("apply_coupled_system", "sem_apply_coupled_system", sfx,
+            q.device, out.data_ptr(), q.data_ptr(), ul.data_ptr(),
+            vl.data_ptr(), *(j.data_ptr() for j in jac), mb.data_ptr(),
+            *_band_ptrs(grid, q.device, q.dtype), _launch_coef(coef, q.dtype),
+            grid.Ngx, grid.Ngy, grid.P)
     return out
 
 
 # ------------------------------- dispatchers ------------------------------ #
 def apply_system_best(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
-    """float64 → the dense path; otherwise kernel B1 (plain on the CPU)."""
+    """float64 → the dense path; float32 and bfloat16 → kernel B1 (plain on
+    the CPU)."""
     if w.dtype == torch.float64:
         return ops.apply_system(grid, u, v, w, coef)
     return apply_system_kernel(grid, u, v, w, coef)
@@ -301,7 +389,8 @@ def apply_system_best(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
 
 def apply_coupled_system_best(grid: Grid2D, q, ul, vl, jac, mb, coef
                               ) -> torch.Tensor:
-    """float64 → the dense path; otherwise kernel B2 (plain on the CPU)."""
+    """float64 → the dense path; float32 and bfloat16 → kernel B2 (plain on
+    the CPU)."""
     if q.dtype == torch.float64:
         return ops.apply_coupled_system(grid, q, ul, vl, jac, mb, coef)
     return apply_coupled_system_kernel(grid, q, ul, vl, jac, mb, coef)

@@ -12,9 +12,11 @@ chunks.
 Both read the strip of their Krylov field(s) with ``P`` halo rows on each
 side, the half-width of the C0 band, and the linearization fields of the
 strip alone.  As for B1/B2, a wrapper launches its kernel for CUDA float32
-tensors and raises for any other dtype on the card; only CPU tensors take the
-plain version (``*_sharded_plain``).  Each launch adds one to
-``kernels.LAUNCHES`` under the wrapper's own name.
+or bfloat16 fields (one dtype per call; at bf16 the reference kernel's bf16
+function, :mod:`sem_tpu_torch.ops.kernels`) and raises for any other dtype
+on the card; only CPU tensors take the plain version (``*_sharded_plain``).
+Each launch adds one to ``kernels.LAUNCHES`` under the wrapper's own name, a
+bf16 launch under that name with ``_bf16`` appended.
 
 :class:`RowStrips` holds one grid's layout over the ranks of a group and the
 three collectives of a decomposed chunk: the halo exchange (one all-gather
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops.kernels import (_band_ptrs, _check, _coupled_plain,
-                                       _launch, _system_plain,
+                                       _launch, _launch_coef, _system_plain,
                                        row_window_tiles)
 from sem_tpu_torch.parallel.sharding import row_strips
 
@@ -143,41 +145,42 @@ def apply_coupled_system_sharded_plain(grid: Grid2D, rows, q_ext, ul, vl,
 # -------------------------------- wrappers -------------------------------- #
 def apply_system_sharded(grid: Grid2D, rows, u, v, w_ext, coef
                          ) -> torch.Tensor:
-    """Kernel B3 on CUDA tensors (float32 only); the plain version for
-    tensors on the CPU."""
+    """Kernel B3 on CUDA tensors (float32 or bfloat16 fields, one dtype);
+    the plain version for tensors on the CPU."""
     if w_ext.device.type == "cpu":
         return apply_system_sharded_plain(grid, rows, u, v, w_ext, coef)
     r0, r1 = rows
     n = (r1 - r0) * grid.Ngy
-    _check("apply_system_sharded", (w_ext, u, v),
-           [(n + 2 * grid.P * grid.Ngy,), (n,), (n,)], [torch.float32] * 3)
+    dt = w_ext.dtype
+    sfx = _check("apply_system_sharded", (w_ext, u, v),
+                 [(n + 2 * grid.P * grid.Ngy,), (n,), (n,)])
     out = torch.empty_like(u)
-    _launch("apply_system_sharded", "sem_apply_system_strip_f32",
+    _launch("apply_system_sharded", "sem_apply_system_strip", sfx,
             w_ext.device, out.data_ptr(), u.data_ptr(), v.data_ptr(),
-            w_ext.data_ptr(), *_band_ptrs(grid, w_ext.device), float(coef),
-            r0, r1 - r0, *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy,
-            grid.P)
+            w_ext.data_ptr(), *_band_ptrs(grid, w_ext.device, dt),
+            _launch_coef(coef, dt), r0, r1 - r0, *row_window_tiles(r0, r1),
+            grid.Ngx, grid.Ngy, grid.P)
     return out
 
 
 def apply_coupled_system_sharded(grid: Grid2D, rows, q_ext, ul, vl, jac, mb,
                                  coef) -> torch.Tensor:
-    """Kernel B4 on CUDA tensors (float32 fields, bool mask); the plain
-    version for tensors on the CPU.  The pressure-pin row is the caller's."""
+    """Kernel B4 on CUDA tensors (float32 or bfloat16 fields, one dtype;
+    bool mask); the plain version for tensors on the CPU.  The pressure-pin
+    row is the caller's."""
     if q_ext.device.type == "cpu":
         return apply_coupled_system_sharded_plain(grid, rows, q_ext, ul, vl,
                                                   jac, mb, coef)
     r0, r1 = rows
     n = (r1 - r0) * grid.Ngy
-    f32 = torch.float32
-    _check("apply_coupled_system_sharded", (q_ext, ul, vl, *jac, mb),
-           [(3 * (n + 2 * grid.P * grid.Ngy),)] + [(n,)] * 7,
-           [f32] * 7 + [torch.bool])
+    dt = q_ext.dtype
+    sfx = _check("apply_coupled_system_sharded", (q_ext, ul, vl, *jac, mb),
+                 [(3 * (n + 2 * grid.P * grid.Ngy),)] + [(n,)] * 7, masks=1)
     out = q_ext.new_empty(3 * n)
-    _launch("apply_coupled_system_sharded",
-            "sem_apply_coupled_system_strip_f32", q_ext.device,
-            out.data_ptr(), q_ext.data_ptr(), ul.data_ptr(), vl.data_ptr(),
-            *(j.data_ptr() for j in jac), mb.data_ptr(),
-            *_band_ptrs(grid, q_ext.device), float(coef), r0, r1 - r0,
-            *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy, grid.P)
+    _launch("apply_coupled_system_sharded", "sem_apply_coupled_system_strip",
+            sfx, q_ext.device, out.data_ptr(), q_ext.data_ptr(),
+            ul.data_ptr(), vl.data_ptr(), *(j.data_ptr() for j in jac),
+            mb.data_ptr(),
+            *_band_ptrs(grid, q_ext.device, dt), _launch_coef(coef, dt), r0,
+            r1 - r0, *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy, grid.P)
     return out

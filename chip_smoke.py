@@ -65,7 +65,14 @@ the last line):
    bf16 fields, the counts reset just before and read just after: every
    bf16 kernel launched that many times (per strip for B3/B4) and no f32
    kernel; the estimates finite and within 2 % of the same iteration at
-   f32 (run after the counts are read);
+   f32 (run after the counts are read).  Then B2 and B4 at bf16 (the
+   tensor-core kernel) against their plain versions per output element at
+   P=16 64×64, whole grid and R = 1, 2, 4 strips: at most one bf16 ulp
+   wherever the error exceeds 1e-5·max|ref| (the elements beyond one ulp
+   under that floor counted, any above it printed with its place), the
+   strips the whole-grid bits; their device, call and host µs, bound and
+   share beside the f32 kernel's of this call (phases 4 and 8) and the bf16
+   cuSPARSE µs;
 9. the multi-process path at full size: ``run_parallel`` with the configuration
    of phase 6 (pinned as phase 6 is), two ranks started as two processes of
    this script (NCCL with one card per rank where there are two cards, gloo
@@ -314,6 +321,7 @@ class Walls:
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12    # dense bf16 on the tensor cores
 
 
 def device_us(fn, k=20, reps=20):
@@ -388,11 +396,13 @@ def bound_us(kernels, coupled, grid, rows, strip, mb=None, fbytes=4):
     for one apply of B1/B3 (``coupled`` False) or B2/B4 on grid rows
     ``rows``: each input byte read once and each output byte written once
     (the Krylov fields with their P halo rows for a strip, ``fbytes`` per
-    field value: 4 at f32, 2 at bf16; the f32 band coefficients of the rows
-    and columns; the mask as bytes) over the HBM rate, against the flops of
-    the structurally nonzero taps that the outputs need
-    (``band_tap_ranges``; on a Dirichlet row of B2 only K dp) plus the
-    epilogue's, over the f32 peak (the arithmetic is f32 at both dtypes)."""
+    value of a field, of the compact band coefficients of the rows and
+    columns (2P+1 per row and operator) and of the masses: 4 at f32, 2 at
+    bf16; the mask as bytes) over the HBM rate, against the flops of the
+    structurally nonzero taps that the outputs need (``band_tap_ranges``;
+    on a Dirichlet row of B2 only K dp) over the peak for the operands'
+    type (bf16: the tensor cores' dense bf16 peak), plus the epilogue's
+    over the f32 peak (it is f32 arithmetic at both dtypes)."""
     P, Ngx, Ngy = grid.P, grid.Ngx, grid.Ngy
     r0, r1 = rows
     nr, nb = r1 - r0, 2 * P + 1
@@ -402,19 +412,21 @@ def bound_us(kernels, coupled, grid, rows, strip, mb=None, fbytes=4):
     t0, t1 = kernels.band_tap_ranges(Ngy, P)
     ny = (t1 - t0).astype(float)
     ext = (nr + 2 * P if strip else nr) * Ngy   # Krylov field values read
-    consts = 8 * nb * (nr + Ngy) + 4 * (nr + Ngy)
+    consts = fbytes * (2 * nb + 1) * (nr + Ngy)  # K, G bands and the mass
     taps = Ngy * nx.sum() + nr * ny.sum()       # one x sum + one y sum
     if not coupled:
         nbytes = fbytes * (ext + 3 * nodes) + consts
-        flops = 2 * 2 * taps + 10 * nodes
+        band, pointwise = 2 * 2 * taps, 10 * nodes
     else:
         m = mb.reshape(nr, Ngy).cpu().numpy()
         n_mb = float(m.sum())
         taps_mb = (m.sum(1) * nx).sum() + (m.sum(0) * ny).sum()
         nbytes = fbytes * (3 * ext + 9 * nodes) + nodes + consts
-        flops = (2 * (5 * (taps - taps_mb) + taps_mb)
-                 + 33 * (nodes - n_mb) + 3 * n_mb)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        band = 2 * (5 * (taps - taps_mb) + taps_mb)
+        pointwise = 33 * (nodes - n_mb) + 3 * n_mb
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (band / (BF16_TC_FLOPS if fbytes == 2 else F32_FLOPS)
+             + pointwise / F32_FLOPS)
     return 1e6 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -872,8 +884,87 @@ def main(kernels_only=False):
             raise AssertionError(f"bf16 path failed: launches {counts} "
                                  f"(want {want}), estimates {lams} against "
                                  f"f32 {lam32}")
+        tensor_core_checks()
         walls.mark("8b_bf16_path")
         return counts
+
+    def ulps(got, ref):
+        """bf16 ulps between two bf16 tensors: the distance of their values
+        on the ordered line of bf16 bit patterns."""
+        def line(t):
+            b = t.contiguous().view(torch.int16).int() & 0xFFFF
+            return torch.where(b >= 0x8000, 0x8000 - b, b)
+        return (line(got) - line(ref)).abs()
+
+    def tensor_core_checks():
+        """Phase 8b: B2 and B4 at bf16 (the tensor-core kernel) at P16 64×64
+        against their plain versions per output element, whole grid and the
+        R = 1, 2, 4 strips (each strip's halo cut from the full field): at
+        most one bf16 ulp wherever the error exceeds the absolute floor
+        ``BF16_TOL['atol_rel']``·max|ref|; the elements beyond one ulp under
+        that floor are counted, and any above it printed with their place;
+        the strips the whole-grid launch's bits.  Then their device, call and
+        host µs, bound and share beside the f32 kernel's of this call (phases
+        4 and 8) and the bf16 cuSPARSE µs."""
+        a = inputs(g64, bf16)["apply_coupled_system"]
+        whole_out = kernels.apply_coupled_system_best(g64, *a)
+        cases = [("apply_coupled_system", "whole", whole_out,
+                  kernels.apply_coupled_system_plain(g64, *a))]
+        same = {}
+        for R in (1, 2, 4):
+            outs, refs = [], []
+            for rows in row_strips(g64.Ngx, R, g64.P):
+                sa = strip_args("apply_coupled_system_sharded", g64, rows, a)
+                outs.append(sharded.apply_coupled_system_sharded(*sa
+                                                                 ).reshape(3, -1))
+                refs.append(sharded.apply_coupled_system_sharded_plain(
+                    *sa).reshape(3, -1))
+            got = torch.cat(outs, 1).reshape(-1)
+            cases.append(("apply_coupled_system_sharded", f"R={R}", got,
+                          torch.cat(refs, 1).reshape(-1)))
+            same[R] = torch.equal(got, whole_out)
+        torch.cuda.synchronize()
+        ok, res = all(same.values()), {}
+        for name, where, got, ref in cases:
+            u = ulps(got, ref)
+            err = (got.double() - ref.double()).abs()
+            scale = float(ref.double().abs().max())
+            far = (u > 1) & (err > BF16_TOL["atol_rel"] * scale)
+            r = res[f"{name}:{where}"] = {
+                "max_ulps_above_floor": int(u[err > BF16_TOL["atol_rel"]
+                                              * scale].max()),
+                "over_1ulp_under_floor": int(((u > 1) & ~far).sum()),
+                "over_1ulp_above_floor": int(far.sum())}
+            if r["over_1ulp_above_floor"]:
+                ok = False
+                r["first"] = [
+                    (divmod(int(k) % g64.N, g64.Ngy), int(k) // g64.N,
+                     float(got[k]), float(ref[k]), int(u[k]))
+                    for k in far.nonzero().flatten()[:3]]
+        _line("bf16_tensor_cores", grid=g64.tag, checks=res,
+              floor=f"{BF16_TOL['atol_rel']:g}*scale",
+              strips_same_bits_as_whole_grid=same, ok=ok)
+        if not ok:
+            raise AssertionError(f"B2/B4 at bf16: beyond one bf16 ulp of "
+                                 f"the plain versions {res}, or strips "
+                                 f"not the whole-grid bits {same}")
+        for name in ("apply_coupled_system", "apply_coupled_system_sharded"):
+            lo, hi = report[name + "_bf16"], report[name]
+            lib = lo["library_us"]
+            _line("bf16_tensor_core_timing", kernel=name, grid=g64.tag, **(
+                {"R": RANKS, "strip": 0} if name.endswith("_sharded")
+                else {}),
+                device_us=f"{lo['device_us']:.2f}",
+                device_us_f32=f"{hi['device_us']:.2f}",
+                bound_us=f"{lo['bound_us']:.2f}",
+                bound_us_f32=f"{hi['bound_us']:.2f}",
+                share=f"{lo['share']:.3f}", share_f32=f"{hi['share']:.3f}",
+                call_us=f"{lo['call_us']:.2f}",
+                call_us_f32=f"{hi['call_us']:.2f}",
+                host_us=f"{lo['host_us']:.2f}",
+                host_us_f32=f"{hi['host_us']:.2f}",
+                library_us="none" if lib is None else f"{lib:.2f}",
+                smi=f"'{smi}'")
 
     if kernels_only:
         strip_phases()

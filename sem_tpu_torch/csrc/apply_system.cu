@@ -139,8 +139,8 @@ int dispatch(void* out, const void* u, const void* v, const void* w,
 // The entry points launch on `stream` and return the cudaError_t of the
 // launch (0 = success, cudaErrorInvalidValue for an order outside
 // 1..P_MAX or a row window that the tiles do not cover).  The *_bf16 ones
-// take bf16 fields and output and the same f32 coefficient tables, masses
-// and coef, rounded to bf16 on the host.
+// take bf16 fields and output and the same f32 coefficient tables and
+// masses, rounded to bf16 on the host, and round coef to bf16 themselves.
 
 // B1: the whole grid.
 extern "C" int sem_apply_system_f32(
@@ -160,9 +160,9 @@ extern "C" int sem_apply_system_bf16(
     float coef, int Ngx, int Ngy, int P,
     void* stream)
 {
-    return dispatch<__nv_bfloat16>(out, u, v, w, kgx, kgy, m1x, m1y, coef,
-                                   Window{0, Ngx, 0, 0}, (Ngx + TI - 1) / TI,
-                                   Ngx, Ngy, P, stream);
+    return dispatch<__nv_bfloat16>(out, u, v, w, kgx, kgy, m1x, m1y,
+                                   bf16_round(coef), Window{0, Ngx, 0, 0},
+                                   (Ngx + TI - 1) / TI, Ngx, Ngy, P, stream);
 }
 
 // B3: rows [r0, r0+nrows) from w_ext, the strip of w with P halo rows per
@@ -188,6 +188,7 @@ extern "C" int sem_apply_system_strip_bf16(
     int P, void* stream)
 {
     return dispatch<__nv_bfloat16>(out, u, v, w_ext, kgx, kgy, m1x, m1y,
-                                   coef, Window{r0, r0 + nrows, r0 - P, tile0},
+                                   bf16_round(coef),
+                                   Window{r0, r0 + nrows, r0 - P, tile0},
                                    ntiles, Ngx, Ngy, P, stream);
 }

@@ -50,9 +50,10 @@
 // where the epilogue loads its pointwise values (to_f); everything in shared
 // memory, every product and every sum is f32, and the output is rounded to
 // the field type once, where it is written (store).  The host hands a bf16
-// launch the coefficient tables, masses and coef rounded to bf16 and held as
-// f32 (sem_tpu_torch.ops.kernels), so a bf16 launch computes the reference
-// kernel's bf16 function: bf16 operands, f32 arithmetic, one rounding.  At
+// launch the coefficient tables and masses rounded to bf16 and held as f32
+// (sem_tpu_torch.ops.kernels), and the entry point rounds coef (bf16_round),
+// so a bf16 launch computes the reference kernel's bf16 function: bf16
+// operands, f32 arithmetic, one rounding.  At
 // f32, stage, to_f and store are a cp.async, the identity and a plain
 // store, so the f32 kernels keep the bits recorded for them.
 //
@@ -153,6 +154,13 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x)
 {
     *p = __float2bfloat16_rn(x);
+}
+
+// x rounded to bf16 (to nearest even, as torch's cast) and widened back:
+// coef of a bf16 launch, rounded once by its entry point.
+__host__ __device__ inline float bf16_round(float x)
+{
+    return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Shared-memory layout of a block for NF fields at order P (floats).

@@ -12,7 +12,9 @@ Both kernels read the assembled 1D operators in compact band storage
 (:func:`tile_coefficients`), which is exact because every nonzero of the C0
 operators lies within half-band P of the diagonal (checked when built), and
 run only the taps of :func:`band_tap_ranges`, outside of which every
-coefficient is a structural zero.  They take orders ``1 ≤ P ≤ 64``
+coefficient is a structural zero; B2 at bfloat16 reads them as the dense
+band blocks of its 32-node tiles (:func:`band_blocks`) and runs only the
+16-wide k chunks that hold such taps.  They take orders ``1 ≤ P ≤ 64``
 (:data:`P_MAX`, the reference's limit) and raise for others.  The row-strip
 kernels B3/B4 of :mod:`sem_tpu_torch.ops.sharded` are the same kernels on a
 row window, launched on the tiles of :func:`row_window_tiles`.
@@ -21,9 +23,12 @@ Field dtypes.  Like the reference's Pallas kernels, B1-B4 take float32 or
 bfloat16 fields (every floating operand of a call in one dtype; B2's mask
 is bool).  At bfloat16 they compute the reference kernel's bf16 function:
 the fields, the band coefficients, the 1D masses and ``coef`` rounded to
-bf16, every product and sum in f32, one rounding to bf16 at the output
-(:func:`band_operators` and :func:`tile_coefficients` hold those rounded
-constants as f32).  The solvers' chunks are f32; bf16 serves speed runs.
+bf16, every product exact and every sum in f32, one rounding to bf16 at the
+output (:func:`band_operators` and :func:`tile_coefficients` hold those
+rounded constants as f32).  B2/B4 at bf16 run their band products on the
+tensor cores (``csrc/mma.cuh``: bf16 operands, f32 accumulation), reading
+the band blocks of :func:`band_blocks` in bf16.  The solvers' chunks are
+f32; bf16 serves speed runs.
 
 A wrapper launches its kernel for CUDA tensors of those dtypes and raises
 for any other dtype on the card; a build or launch failure raises.  Only a
@@ -38,6 +43,7 @@ path of :mod:`sem_tpu_torch.operators`, as the reference does.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -49,7 +55,8 @@ from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.utils.tensors import device_const
 
 __all__ = ["LAUNCHES", "P_MAX", "TILE", "band_storage", "band_operators",
-           "band_tap_ranges", "tile_coefficients", "row_window_tiles",
+           "band_tap_ranges", "tile_coefficients", "mma_geometry",
+           "library_mma_geometry", "band_blocks", "row_window_tiles",
            "apply_system_kernel",
            "apply_system_plain", "apply_system_best",
            "apply_coupled_system_kernel", "apply_coupled_system_plain",
@@ -158,6 +165,68 @@ def tile_coefficients(grid: Grid2D, device, dtype=torch.float32) -> dict:
                                ("kgy", grid.K1y, grid.G1y))}
 
 
+def mma_geometry(P: int) -> tuple[int, int, int]:
+    """``(Q, nk, pitch)`` of the tensor-core kernels at order ``P``
+    (``halo``, ``chunks``, ``pitch`` in ``csrc/mma.cuh``): the left halo
+    ``Q`` (P rounded up to 8) of a staged tile, the ``nk`` 16-wide k chunks
+    that cover ``Q + TILE + P`` nodes, and the row pitch ``16·nk + 8`` (in
+    values) of every staged block.  :func:`band_blocks` checks it against
+    the library's (:func:`library_mma_geometry`) before it builds blocks on
+    the card."""
+    Q = -(-P // 8) * 8
+    nk = -(-(Q + TILE + P) // 16)
+    return Q, nk, 16 * nk + 8
+
+
+def library_mma_geometry(P: int) -> tuple[int, int, int]:
+    """``(Q, nk, pitch)`` at order ``P`` as the built kernels stage it
+    (``sem_mma_geometry``; builds the library at first use)."""
+    from sem_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.library().sem_mma_geometry(P, out)
+    return tuple(out)
+
+
+def band_blocks(grid: Grid2D, device) -> dict:
+    """The bf16 band blocks of the tensor-core kernels B2/B4 at bf16
+    (``csrc/mma.cuh``), in the layout a block copies flat into shared
+    memory: ``bx[t, 0, r, c] = K1x[t·TILE + r, t·TILE − Q + c]`` and
+    ``bx[t, 1, r, c]`` the same of ``G1x`` for each tile row ``t``
+    (``(ceil(Ngx/TILE), 2, TILE, pitch)``), ``by`` the same of ``K1y``,
+    ``G1y`` for each tile column; zero outside the grid and in the pitch's
+    last 8 values (:func:`mma_geometry`).  The values are the operators
+    rounded to bf16 as the reference's kernel rounds its band blocks
+    (``astype``) and as the plain versions' bf16 tables hold them; cached on
+    the grid per device."""
+    P = grid.P
+    Q, nk, pitch = mma_geometry(P)
+
+    def blocks(K, G):
+        n = K.shape[0]
+        t0 = TILE * np.arange(-(-n // TILE))[:, None, None]
+        r = t0 + np.arange(TILE)[None, :, None]
+        k = t0 - Q + np.arange(pitch)[None, None, :]
+        ok = (r < n) & (k >= 0) & (k < n) & (k - t0 + Q < 16 * nk)
+        r, k = np.clip(r, 0, n - 1), np.clip(k, 0, n - 1)
+        out = np.stack([np.where(ok, A[r, k], 0.0) for A in (K, G)], axis=1)
+        return torch.tensor(out).to(torch.bfloat16)
+
+    cache = grid.__dict__.setdefault("_band_blocks", {})
+    device = torch.device(device)
+    if device not in cache:
+        if device.type == "cuda" and library_mma_geometry(P) != (Q, nk,
+                                                                 pitch):
+            raise RuntimeError(
+                f"band_blocks: the kernels stage P={P} as (Q, nk, pitch) = "
+                f"{library_mma_geometry(P)}, mma_geometry gives "
+                f"{(Q, nk, pitch)}")
+        cache[device] = {
+            "bx": blocks(grid.K1x, grid.G1x).to(device),
+            "by": blocks(grid.K1y, grid.G1y).to(device)}
+    return cache[device]
+
+
 def row_window_tiles(r0: int, r1: int) -> tuple[int, int]:
     """First tile row and number of tile rows of a launch of B1-B4 on grid
     rows ``r0..r1-1`` (``Window`` in ``csrc/tile.cuh``).  The tiles stay on
@@ -176,8 +245,9 @@ def _widen(t: torch.Tensor) -> torch.Tensor:
 
 def _bf16_coef(coef) -> float:
     """``coef`` rounded to bf16 as torch's cast rounds (through f32, to
-    nearest even), as the reference's kernel passes it; on the scalar's
-    bits, which costs a launch less host time than a torch cast."""
+    nearest even), as the reference's kernel passes it, on the scalar's
+    bits (the plain versions; a bf16 entry point rounds the f32 ``coef`` it
+    is given with ``bf16_round``, ``csrc/tile.cuh``)."""
     try:
         b = struct.unpack("<I", struct.pack("<f", float(coef)))[0]
     except OverflowError:            # rounds to ±inf in f32
@@ -322,27 +392,26 @@ def _launch(name: str, entry: str, sfx: str, device, *args):
     LAUNCHES[name if sfx == "f32" else f"{name}_{sfx}"] += 1
 
 
-def _band_ptrs(grid: Grid2D, device, dtype=torch.float32) -> tuple:
-    """Device addresses of the f32 constants of B1-B4 (kgx, kgy, m1x, m1y)
-    for fields of ``dtype`` (bfloat16: the bf16-rounded tables), cached on
-    the grid beside the tensors that own them."""
+def _band_ptrs(grid: Grid2D, device, dtype=torch.float32,
+               blocks: bool = False) -> tuple:
+    """Device addresses of the constants of B1-B4 for fields of ``dtype``:
+    the f32 coefficient pairs (kgx, kgy; bfloat16: the bf16-rounded tables)
+    or, with ``blocks`` at bfloat16 (B2/B4's tensor-core kernel), the bf16
+    band blocks (bx, by; :func:`band_blocks`), then the f32 masses (m1x,
+    m1y); cached on the grid beside the tensors that own them."""
     cache = grid.__dict__.setdefault("_band_ptrs", {})
-    ptrs = cache.get((device, dtype))
+    key = (device, dtype, blocks and dtype == torch.bfloat16)
+    ptrs = cache.get(key)
     if ptrs is None:
         if not 1 <= grid.P <= P_MAX:
             raise ValueError(f"the CUDA kernels B1-B4 take orders 1 <= P <= "
                              f"{P_MAX}, got P={grid.P}")
-        t = tile_coefficients(grid, device, dtype)
+        t = (band_blocks(grid, device) if key[2]
+             else tile_coefficients(grid, device, dtype))
         c = band_operators(grid, dtype, device)
-        ptrs = cache[(device, dtype)] = (
-            t["kgx"].data_ptr(), t["kgy"].data_ptr(), c["m1x"].data_ptr(),
-            c["m1y"].data_ptr())
+        ptrs = cache[key] = tuple(a.data_ptr() for a in (
+            *t.values(), c["m1x"], c["m1y"]))
     return ptrs
-
-
-def _launch_coef(coef, dtype) -> float:
-    """``coef`` as a launch for fields of ``dtype`` passes it."""
-    return _bf16_coef(coef) if dtype == torch.bfloat16 else float(coef)
 
 
 def apply_system_kernel(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
@@ -354,8 +423,8 @@ def apply_system_kernel(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
     out = torch.empty_like(w)
     _launch("apply_system", "sem_apply_system", sfx, w.device,
             out.data_ptr(), u.data_ptr(), v.data_ptr(), w.data_ptr(),
-            *_band_ptrs(grid, w.device, w.dtype),
-            _launch_coef(coef, w.dtype), grid.Ngx, grid.Ngy, grid.P)
+            *_band_ptrs(grid, w.device, w.dtype), float(coef), grid.Ngx,
+            grid.Ngy, grid.P)
     return out
 
 
@@ -373,7 +442,7 @@ def apply_coupled_system_kernel(grid: Grid2D, q, ul, vl, jac, mb, coef
     _launch("apply_coupled_system", "sem_apply_coupled_system", sfx,
             q.device, out.data_ptr(), q.data_ptr(), ul.data_ptr(),
             vl.data_ptr(), *(j.data_ptr() for j in jac), mb.data_ptr(),
-            *_band_ptrs(grid, q.device, q.dtype), _launch_coef(coef, q.dtype),
+            *_band_ptrs(grid, q.device, q.dtype, blocks=True), float(coef),
             grid.Ngx, grid.Ngy, grid.P)
     return out
 

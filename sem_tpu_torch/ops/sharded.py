@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops.kernels import (_band_ptrs, _check, _coupled_plain,
-                                       _launch, _launch_coef, _system_plain,
+                                       _launch, _system_plain,
                                        row_window_tiles)
 from sem_tpu_torch.parallel.sharding import row_strips
 
@@ -158,7 +158,7 @@ def apply_system_sharded(grid: Grid2D, rows, u, v, w_ext, coef
     _launch("apply_system_sharded", "sem_apply_system_strip", sfx,
             w_ext.device, out.data_ptr(), u.data_ptr(), v.data_ptr(),
             w_ext.data_ptr(), *_band_ptrs(grid, w_ext.device, dt),
-            _launch_coef(coef, dt), r0, r1 - r0, *row_window_tiles(r0, r1),
+            float(coef), r0, r1 - r0, *row_window_tiles(r0, r1),
             grid.Ngx, grid.Ngy, grid.P)
     return out
 
@@ -181,6 +181,7 @@ def apply_coupled_system_sharded(grid: Grid2D, rows, q_ext, ul, vl, jac, mb,
             sfx, q_ext.device, out.data_ptr(), q_ext.data_ptr(),
             ul.data_ptr(), vl.data_ptr(), *(j.data_ptr() for j in jac),
             mb.data_ptr(),
-            *_band_ptrs(grid, q_ext.device, dt), _launch_coef(coef, dt), r0,
-            r1 - r0, *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy, grid.P)
+            *_band_ptrs(grid, q_ext.device, dt, blocks=True), float(coef),
+            r0, r1 - r0, *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy,
+            grid.P)
     return out

@@ -16,6 +16,7 @@ from sem_tpu.mesh import Grid2D as JGrid2D
 from sem_tpu.ops import (apply_coupled_system_pallas,
                          apply_coupled_system_pallas_sharded,
                          apply_system_pallas, apply_system_pallas_sharded)
+from sem_tpu.ops.pallas_kernels import _banded_constants_stag
 from sem_tpu.parallel.sharding import make_mesh
 from sem_tpu_torch import krylov as tkry
 from sem_tpu_torch.mesh import Grid2D
@@ -266,6 +267,80 @@ def test_bf16_constants_are_rounded_and_f32_tables_keep_their_bits():
     assert kernels.tile_coefficients(grid, cpu)["kgx"] is t32["kgx"]
 
 
+# ------------------- band blocks of the tensor-core B2/B4 ------------------ #
+BLOCK_SIZES = [(4, 8), (7, 5), (16, 4), (9, 7)]
+
+
+@pytest.mark.parametrize("P,Ne", BLOCK_SIZES)
+def test_band_blocks_hold_the_pallas_bf16_band_values(P, Ne):
+    """The bf16 band blocks that B2/B4 stage at bf16 (``band_blocks``) hold
+    the values ``sem_tpu``'s Pallas kernel rounds with ``astype(bfloat16)``
+    (``_banded_constants_stag(grid, "bfloat16")``, 128-row staggered
+    blocks) bit for bit, zeros outside the band, and the plain versions' bf16
+    band tables."""
+    cfg = (P, Ne, Ne + 1, 1.0, 1.3)
+    grid = Grid2D(*cfg)
+    bx, by, *_ = _banded_constants_stag(JGrid2D(*cfg), "bfloat16")
+    bx, by = (np.asarray(b).astype(np.float32) for b in (bx, by))
+    blocks = kernels.band_blocks(grid, "cpu")
+    band = kernels.band_operators(grid, BF16, "cpu")
+    Q, nk, pitch = kernels.mma_geometry(P)
+    H, B = 64, 128
+    for name, n in (("bx", grid.Ngx), ("by", grid.Ngy)):
+        ours = blocks[name].float().numpy()
+        assert blocks[name].dtype == BF16
+        assert ours.shape == (-(-n // 32), 2, 32, pitch)
+        t, op, r, c = np.meshgrid(*map(np.arange, ours.shape), indexing="ij")
+        a, b = 32 * t + r, 32 * t - Q + c          # operator row, column
+        inband = (a < n) & (b >= 0) & (b < n) & (np.abs(a - b) <= P)
+        assert not ours[~inband].any()
+        a, b, op, got = a[inband], b[inband], op[inband], ours[inband]
+        blk = a // B
+        if name == "bx":    # bx[i][op·B + kr, cc] = op(i·B + kr, i·B + cc - H)
+            want = bx[blk, op * B + a % B, b - blk * B + H]
+            tab = np.stack([band["kxb"].numpy(), band["gxb"].numpy()])
+            plain = tab[op, a, b - a + P]
+        else:               # by[j][rr, op·B + cc] = opᵀ(j·B + rr - H, j·B + cc)
+            want = by[blk, b - blk * B + H, op * B + a % B]
+            tab = np.stack([band["kybT"].numpy(), band["gybT"].numpy()])
+            plain = tab[op, b - a + P, a]
+        assert np.array_equal(got, want)
+        assert np.array_equal(got, plain)
+        assert np.count_nonzero(got) > 0
+
+
+def _chunks(first, m, n, P, origin):
+    """The k chunks B2/B4's tensor-core kernel runs for nodes first ..
+    first+m-1 of an n-node line (``chunk_range`` in ``csrc/mma.cuh``), as
+    staged indices [16·c0, 16·(c1+1))."""
+    t0, t1 = kernels.band_tap_ranges(n, P)
+    last = min(first + m - 1, n - 1)
+    k0, k1 = first - P + t0[first], last - P + t1[last] - 1
+    return 16 * ((k0 - origin) // 16), 16 * ((k1 - origin) // 16 + 1)
+
+
+@pytest.mark.parametrize("P,Ne", BLOCK_SIZES + [(1, 40), (64, 2)])
+def test_band_block_chunks_hold_every_nonzero(P, Ne):
+    """Every nonzero coefficient of a warp's 16 rows (x sums) or 8 columns
+    (y sums) lies in the k chunks that the tensor-core kernel runs for them,
+    and those chunks lie in the staged window of 16·nk nodes."""
+    grid = Grid2D(P, Ne, Ne + 1, 1.0, 1.3)
+    blocks = kernels.band_blocks(grid, "cpu")
+    Q, nk, _ = kernels.mma_geometry(P)
+    assert nk * 16 >= Q + 32 + P
+    for name, A, m in (("bx", grid.K1x, 16), ("bx", grid.G1x, 16),
+                       ("by", grid.K1y, 8), ("by", grid.G1y, 8)):
+        n = A.shape[0]
+        for i0 in range(0, n, 32):
+            for first in range(i0, min(i0 + 32, n), m):
+                lo, hi = _chunks(first, m, n, P, i0 - Q)
+                assert 0 <= lo and hi <= 16 * nk
+                rows = A[first:min(first + m, n)]
+                cols = np.nonzero(rows.any(axis=0))[0] - (i0 - Q)
+                assert cols.min() >= lo and cols.max() < hi
+        assert blocks[name].shape[0] == -(-n // 32)
+
+
 # --------------------------- on the card only ----------------------------- #
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,Ne", CUDA_SIZES)
@@ -322,6 +397,99 @@ def test_cuda_kernels_bf16_match_plain(P, Ne):
     with pytest.raises(TypeError):
         sharded.apply_system_sharded(*((x.half() if torch.is_tensor(x)
                                         else x) for x in a3))
+
+
+def _ulps(got, ref) -> torch.Tensor:
+    """bf16 ulps between two bf16 tensors: the distance of their values on
+    the ordered line of bf16 bit patterns."""
+    def line(t):
+        b = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(b >= 0x8000, 0x8000 - b, b)
+    return (line(got) - line(ref)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_cuda_b2_b4_bf16_tensor_cores_within_one_ulp(R):
+    """B2 and B4 at bf16 (the tensor-core kernel) at P16 64×64 against their
+    plain versions: at most one bf16 ulp per output element where the
+    output is above the absolute floor 1e-5·max|ref| (outputs that cancel
+    to near zero are held to that floor); the R strips, concatenated, give
+    the whole-grid launch's bits; every launch counted at bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    grid = Grid2D(16, 64, 64, 1.0, 1.0)
+    _, (q, ul, vl, jac, mb, c) = _b12_args(grid, 31, dev)
+    n0 = dict(kernels.LAUNCHES)
+
+    def check(got, ref):
+        assert got.dtype == BF16
+        floor = ATOL_REL * float(ref.float().abs().max())
+        far = (_ulps(got, ref) > 1) & ((got.float() - ref.float()).abs()
+                                       > floor)
+        assert not bool(far.any()), int(far.sum())
+
+    got = kernels.apply_coupled_system_best(grid, q, ul, vl, jac, mb, c)
+    check(got, kernels.apply_coupled_system_plain(grid, q, ul, vl, jac, mb,
+                                                  c))
+    parts = []
+    strips = row_strips(grid.Ngx, R, grid.P)
+    for rows in strips:
+        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+        a = (grid, rows, sharded.strip_with_halo(grid, rows, q, 3), ul[sl],
+             vl[sl], tuple(j[sl] for j in jac), mb[sl], c)
+        out = sharded.apply_coupled_system_sharded(*a)
+        check(out, sharded.apply_coupled_system_sharded_plain(*a))
+        parts.append(out.reshape(3, -1))
+    assert torch.equal(torch.cat(parts, 1).reshape(-1), got)
+    assert (kernels.LAUNCHES["apply_coupled_system_bf16"]
+            == n0["apply_coupled_system_bf16"] + 1)
+    assert (kernels.LAUNCHES["apply_coupled_system_sharded_bf16"]
+            == n0["apply_coupled_system_sharded_bf16"] + len(strips))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_entry_points_round_coef():
+    """B1-B4 at bf16 round the f32 ``coef`` they are given to bf16 in their
+    entry points: a ``coef`` off the bf16 grid gives the bits of the same
+    launch with ``_bf16_coef(coef)``, within one bf16 ulp of the plain
+    versions (which round it on the host)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    grid = Grid2D(8, 4, 5, 1.0, 1.3)
+    (u, v, w, _), (q, ul, vl, jac, mb, _) = _b12_args(grid, 37, dev)
+    rows = row_strips(grid.Ngx, 2, grid.P)[1]
+    sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+    calls = (
+        (kernels.apply_system_kernel, kernels.apply_system_plain,
+         (grid, u, v, w)),
+        (kernels.apply_coupled_system_kernel,
+         kernels.apply_coupled_system_plain, (grid, q, ul, vl, jac, mb)),
+        (sharded.apply_system_sharded, sharded.apply_system_sharded_plain,
+         (grid, rows, u[sl], v[sl], sharded.strip_with_halo(grid, rows, w))),
+        (sharded.apply_coupled_system_sharded,
+         sharded.apply_coupled_system_sharded_plain,
+         (grid, rows, sharded.strip_with_halo(grid, rows, q, 3), ul[sl],
+          vl[sl], tuple(j[sl] for j in jac), mb[sl])))
+    for c in (7.3, 37.3, -0.1):
+        assert kernels._bf16_coef(c) != c
+        for fn, pfn, a in calls:
+            got = fn(*a, c)
+            assert torch.equal(got, fn(*a, kernels._bf16_coef(c)))
+            _assert_within_one_ulp(got, pfn(*a, c))
+
+
+@pytest.mark.cuda
+def test_cuda_mma_geometry_is_the_librarys():
+    """The host's mirror of the tensor-core kernels' staged geometry
+    (``mma_geometry``, which lays out ``band_blocks``) is the library's at
+    every order the kernels take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for P in range(1, kernels.P_MAX + 1):
+        assert kernels.library_mma_geometry(P) == kernels.mma_geometry(P)
 
 
 # -------------------------- Krylov basis storage -------------------------- #

@@ -33,7 +33,8 @@ the last line):
    R=1: the same kernel through its row-window entry point, on the same
    inputs) and ``strip_over_whole`` (that over ``device_us``, about 1);
    then the same rows on bf16 fields (``bound_us`` at 2 bytes per field
-   value, the coefficient tables at f32; ``library_us`` a bf16
+   value, compact band coefficient and mass, the band flops at the bf16
+   tensor-core peak; ``library_us`` a bf16
    ``torch.sparse_csr_tensor`` product where torch takes one on the card,
    else the error it raised);
 5. the reference configuration: ``run`` JNK, P=4 8×8, Ra=1e3, on the
@@ -65,14 +66,15 @@ the last line):
    bf16 fields, the counts reset just before and read just after: every
    bf16 kernel launched that many times (per strip for B3/B4) and no f32
    kernel; the estimates finite and within 2 % of the same iteration at
-   f32 (run after the counts are read).  Then B2 and B4 at bf16 (the
-   tensor-core kernel) against their plain versions per output element at
-   P=16 64×64, whole grid and R = 1, 2, 4 strips: at most one bf16 ulp
-   wherever the error exceeds 1e-5·max|ref| (the elements beyond one ulp
-   under that floor counted, any above it printed with its place), the
-   strips the whole-grid bits; their device, call and host µs, bound and
-   share beside the f32 kernel's of this call (phases 4 and 8) and the bf16
-   cuSPARSE µs;
+   f32 (run after the counts are read).  Then B1-B4 at bf16 (the
+   tensor-core kernels) against their plain versions per output element,
+   B1/B3 at P=16 32×32 and 64×64, B2/B4 at P=16 64×64, whole grid and R =
+   1, 2, 4 strips: at most one bf16 ulp wherever the error exceeds
+   1e-5·max|ref| (the elements beyond one ulp under that floor counted, any
+   above it printed with its place), the strips the whole-grid bits; their
+   device, call and host µs, bound and share at each of those shapes (R=2
+   strip 0 for B3/B4) beside the f32 kernel's of this call (phases 4 and 8)
+   and the bf16 cuSPARSE µs;
 9. the multi-process path at full size: ``run_parallel`` with the configuration
    of phase 6 (pinned as phase 6 is), two ranks started as two processes of
    this script (NCCL with one card per rank where there are two cards, gloo
@@ -599,6 +601,8 @@ def main(kernels_only=False):
                     Grid2D(16, 64, 64, 1.0, 1.0))
     main_grid = {"apply_system": g32, "apply_coupled_system": g64}
     report = {name: {} for name in kernel_fns}
+    # phases 4 and 8's measurements by (kernel and dtype suffix, grid tag)
+    measured = {}
     for name, (kfn, pfn, dense) in kernel_fns.items():
         for grid in (g4, g32, g64):
             a32 = inputs(grid, torch.float32)[name]
@@ -734,6 +738,7 @@ def main(kernels_only=False):
                 show(name, grid, m, **({"dtype": "bfloat16"} if sfx else {}),
                      strip_r1_us=f"{m['strip_r1_us']:.2f}", strip_over_whole=
                      f"{m['strip_r1_us'] / m['device_us']:.3f}")
+                measured[name + sfx, grid.tag] = m
                 if grid is main_grid[name]:
                     report[name + sfx].update(m)
 
@@ -819,6 +824,7 @@ def main(kernels_only=False):
                     show(name, grid, m,
                          **({"dtype": "bfloat16"} if sfx else {}), R=RANKS,
                          strip_rows=f"{rows[0]}:{rows[1]}")
+                    measured[name + sfx, grid.tag] = m
                     if grid is main_strip_grid[name]:
                         report[name + sfx].update(m)
 
@@ -897,40 +903,47 @@ def main(kernels_only=False):
         return (line(got) - line(ref)).abs()
 
     def tensor_core_checks():
-        """Phase 8b: B2 and B4 at bf16 (the tensor-core kernel) at P16 64×64
-        against their plain versions per output element, whole grid and the
-        R = 1, 2, 4 strips (each strip's halo cut from the full field): at
+        """Phase 8b: B1-B4 at bf16 (the tensor-core kernels) against their
+        plain versions per output element, B1/B3 at P16 32×32 and 64×64 and
+        B2/B4 at P16 64×64, whole grid (through the dispatchers) and the R
+        = 1, 2, 4 strips (each strip's halo cut from the full field): at
         most one bf16 ulp wherever the error exceeds the absolute floor
         ``BF16_TOL['atol_rel']``·max|ref|; the elements beyond one ulp under
         that floor are counted, and any above it printed with their place;
-        the strips the whole-grid launch's bits.  Then their device, call and
-        host µs, bound and share beside the f32 kernel's of this call (phases
-        4 and 8) and the bf16 cuSPARSE µs."""
-        a = inputs(g64, bf16)["apply_coupled_system"]
-        whole_out = kernels.apply_coupled_system_best(g64, *a)
-        cases = [("apply_coupled_system", "whole", whole_out,
-                  kernels.apply_coupled_system_plain(g64, *a))]
-        same = {}
-        for R in (1, 2, 4):
-            outs, refs = [], []
-            for rows in row_strips(g64.Ngx, R, g64.P):
-                sa = strip_args("apply_coupled_system_sharded", g64, rows, a)
-                outs.append(sharded.apply_coupled_system_sharded(*sa
-                                                                 ).reshape(3, -1))
-                refs.append(sharded.apply_coupled_system_sharded_plain(
-                    *sa).reshape(3, -1))
-            got = torch.cat(outs, 1).reshape(-1)
-            cases.append(("apply_coupled_system_sharded", f"R={R}", got,
-                          torch.cat(refs, 1).reshape(-1)))
-            same[R] = torch.equal(got, whole_out)
+        the strips the whole-grid launch's bits.  Then their device, call
+        and host µs, bound and share at each shape beside the f32 kernel's
+        of this call (phases 4 and 8) and the bf16 cuSPARSE µs."""
+        best = {"apply_system": kernels.apply_system_best,
+                "apply_coupled_system": kernels.apply_coupled_system_best}
+        cases, same = [], {}
+        for name, grid in (("apply_system", g32), ("apply_system", g64),
+                           ("apply_coupled_system", g64)):
+            a = inputs(grid, bf16)[name]
+            whole_out = best[name](grid, *a)
+            cases.append((name, grid, "whole", whole_out,
+                          kernel_fns[name][1](grid, *a)))
+            sname = strip_of[name]
+            sfn, spfn = strip_fns[sname]
+            nf = 3 if name == "apply_coupled_system" else 1
+            for R in (1, 2, 4):
+                outs, refs = [], []
+                for rows in row_strips(grid.Ngx, R, grid.P):
+                    sa = strip_args(sname, grid, rows, a)
+                    outs.append(sfn(*sa).reshape(nf, -1))
+                    refs.append(spfn(*sa).reshape(nf, -1))
+                got = torch.cat(outs, 1).reshape(-1)
+                cases.append((sname, grid, f"R={R}", got,
+                              torch.cat(refs, 1).reshape(-1)))
+                same[f"{sname}:{grid.tag}:R={R}"] = torch.equal(got,
+                                                                whole_out)
         torch.cuda.synchronize()
         ok, res = all(same.values()), {}
-        for name, where, got, ref in cases:
+        for name, grid, where, got, ref in cases:
             u = ulps(got, ref)
             err = (got.double() - ref.double()).abs()
             scale = float(ref.double().abs().max())
             far = (u > 1) & (err > BF16_TOL["atol_rel"] * scale)
-            r = res[f"{name}:{where}"] = {
+            r = res[f"{name}:{grid.tag}:{where}"] = {
                 "max_ulps_above_floor": int(u[err > BF16_TOL["atol_rel"]
                                               * scale].max()),
                 "over_1ulp_under_floor": int(((u > 1) & ~far).sum()),
@@ -938,20 +951,25 @@ def main(kernels_only=False):
             if r["over_1ulp_above_floor"]:
                 ok = False
                 r["first"] = [
-                    (divmod(int(k) % g64.N, g64.Ngy), int(k) // g64.N,
+                    (divmod(int(k) % grid.N, grid.Ngy), int(k) // grid.N,
                      float(got[k]), float(ref[k]), int(u[k]))
                     for k in far.nonzero().flatten()[:3]]
-        _line("bf16_tensor_cores", grid=g64.tag, checks=res,
+        _line("bf16_tensor_cores", checks=res,
               floor=f"{BF16_TOL['atol_rel']:g}*scale",
               strips_same_bits_as_whole_grid=same, ok=ok)
         if not ok:
-            raise AssertionError(f"B2/B4 at bf16: beyond one bf16 ulp of "
+            raise AssertionError(f"B1-B4 at bf16: beyond one bf16 ulp of "
                                  f"the plain versions {res}, or strips "
                                  f"not the whole-grid bits {same}")
-        for name in ("apply_coupled_system", "apply_coupled_system_sharded"):
-            lo, hi = report[name + "_bf16"], report[name]
+        for name, grid in (("apply_system", g32), ("apply_system", g64),
+                           ("apply_system_sharded", g32),
+                           ("apply_system_sharded", g64),
+                           ("apply_coupled_system", g64),
+                           ("apply_coupled_system_sharded", g64)):
+            lo = measured[name + "_bf16", grid.tag]
+            hi = measured[name, grid.tag]
             lib = lo["library_us"]
-            _line("bf16_tensor_core_timing", kernel=name, grid=g64.tag, **(
+            _line("bf16_tensor_core_timing", kernel=name, grid=grid.tag, **(
                 {"R": RANKS, "strip": 0} if name.endswith("_sharded")
                 else {}),
                 device_us=f"{lo['device_us']:.2f}",

@@ -97,8 +97,8 @@ __global__ void __launch_bounds__(THREADS) coupled_system_kernel(
     const size_t N = (size_t)(W.r1 - W.r0) * Ngy;            // output field
     const float* const fld[3] = {q, q + Nin, q + 2 * Nin};
     float kx[3][NG], gx[3][NG];
-    tile_band_sums<PT, 3, NG, float>(L, fld, kgx, kgy, W, i0, j0, Ngx, Ngy,
-                                     p_rt, kx, gx);
+    tile_band_sums<PT, 3, NG>(L, fld, kgx, kgy, W, i0, j0, Ngx, Ngy, p_rt,
+                              kx, gx);
     const int warp = threadIdx.x / 32, jj = threadIdx.x % 32, j = j0 + jj;
     if (j >= Ngy) return;
     const float my = m1y[j];
@@ -196,18 +196,19 @@ int dispatch_f32(void* out, const void* q, const void* ul, const void* vl,
 // mask, copied raw with each row's offset kept (pw, mk, off).  Then mma.cuh's band products; the f32 kernel's epilogue on
 // the accumulators of this thread's four nodes, reading the staged tiles
 // (the centre du, dv from the aligned field tile); the outputs go through a
-// shared tile in the band blocks' place to coalesced stores along rows.
+// shared tile in the band blocks' place to coalesced stores along rows
+// (mma.cuh's store_tiles).
 // bx and by are the band blocks of all tile rows and tile columns
 // (sem_tpu_torch.ops.kernels.band_blocks).  P is a template parameter for
 // the orders the repo runs (4, 8, 16): the staged window's geometry, the
 // row and task divisions and the tap spans fold to constants; PT = 0 takes
 // any order at run time.
 using sem_tpu_torch::mma::bf16;
+using sem_tpu_torch::mma::OUT_PITCH;
 
 constexpr int NPW = 6;        // ul, vl, jxx, jxy, jyx, jyy
 constexpr int PW_CHUNKS = 5;  // a row's 32 values at any offset (80 bytes)
 constexpr int MB_CHUNKS = 3;  // its 32 mask bytes at any offset (48 bytes)
-constexpr int OUT_PITCH = 40; // values per row of the output tile
 
 // Shared memory of the bf16 kernel past mma.cuh's Layout.
 struct Staged {
@@ -340,15 +341,7 @@ coupled_system_mma_kernel(
         }
     }
     __syncthreads();
-    // a warp stores one row of an output at a time, lane = column
-#pragma unroll
-    for (int task = threadIdx.x; task < 3 * TI * TJ; task += tc::THREADS) {
-        const int fr = task / TJ, jj = task % TJ;   // output f's row ii
-        const int f = fr / TI, ii = fr % TI, i = i0 + ii, j = j0 + jj;
-        if (i >= W.r0 && i < W.r1 && j < Ngy)
-            out[f * N + (size_t)(i - W.r0) * Ngy + j] =
-                S.out[fr * OUT_PITCH + jj];
-    }
+    tc::store_tiles<3>(out, N, S.out, W, i0, j0, Ngy);
 }
 
 template <int PT>

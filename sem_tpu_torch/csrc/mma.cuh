@@ -1,7 +1,8 @@
-// Tensor-core band products on bf16 fields (sm_90a): the tiled kernel B2
-// and its row-strip form B4 at bf16 (coupled_system.cu), the products that
-// the reference's Pallas kernel runs as MXU matmuls on bf16 operands with
-// f32 accumulation (pallas_kernels.py, _coupled_kernel).
+// Tensor-core band products on bf16 fields (sm_90a): the tiled kernels B1
+// and B2 at bf16 and their row-strip forms B3 and B4 (apply_system.cu,
+// coupled_system.cu), the products that the reference's Pallas kernels run
+// as MXU matmuls on bf16 operands with f32 accumulation (pallas_kernels.py,
+// _kernel and _coupled_kernel).
 //
 // A block owns the TI × TJ output tile at (i0, j0) of tile.cuh's lattice
 // (Window, row strips and all).  Both directions are dense products of a
@@ -11,7 +12,7 @@
 // with k over the band of the tile's nodes, and run on mma.sync m16n8k16
 // (bf16 operands, f32 accumulators; the bf16 products are exact in f32).
 //
-// Staging (stage).  Shared memory holds, as bf16:
+// Staging (copy_fields, align_fields).  Shared memory holds, as bf16:
 //   * s: each field's rows i0-Q .. i0-Q+16·nk-1 and columns j0-Q ..
 //     j0-Q+16·nk-1 (zeros outside the input buffer and the grid), where
 //     Q = halo(P) is P rounded up to 8 and nk = chunks(P) the number of
@@ -27,10 +28,10 @@
 // staged row in one.  A field row of Ngy values rarely starts on a 16-byte
 // boundary (Ngy = N_ey·P + 1 is odd), so a row's copy is the 16-byte-aligned
 // chunks that cover it (copy_span), and once they have landed one thread
-// per row shifts it into place in shared memory (align_row), zeroing the
-// values beyond the grid's columns.  (One copy per row, not one per
-// 16-byte chunk: ~420 copy instructions per tile at P16 instead of ~3,900,
-// and no zero-filled chunks.)
+// per row (two or four for a single field) shifts it into place in shared
+// memory (align_fields), zeroing the values beyond the grid's columns.
+// (One copy per row, not one per 16-byte chunk: ~420 copy instructions per
+// tile at P16 instead of ~3,900, and no zero-filled chunks.)
 //
 // Products (band_products).  Warp w computes the 16 × 8 nodes at rows
 // i0 + 16·(w mod 2) and columns j0 + 8·(w div 2) for every field, the K and
@@ -40,6 +41,10 @@
 // (x) or columns (y); a skipped chunk would add exact zeros.  The chunks a
 // node sums depend on the global tile lattice alone, so a strip's rows are
 // the whole-grid launch's bits.
+//
+// Stores (store_tiles).  The caller's epilogue writes its outputs, rounded
+// to bf16, into shared tiles of OUT_PITCH values per row in cx/cy's place;
+// a warp then stores one row of an output at a time, lane = column.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -212,9 +217,29 @@ __device__ __forceinline__ uint4 shift_chunk(uint4 lo, uint4 hi, int s)
     return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// Shift a staged row of n + 1 chunks (copy_span; its first value at byte
-// s of the first) in place to n aligned chunks of values, those outside
-// columns [lo, hi) zeroed, and every value when !ok (a row that was not
+// Aligned chunk c of a staged row (copy_span; its first value at byte s
+// of chunk 0) from its chunks c and c + 1, the values outside columns
+// [lo, hi) zeroed.
+__device__ __forceinline__ uint4 aligned_chunk(uint4 cur, uint4 nxt, int s,
+                                               int c, int lo, int hi)
+{
+    uint4 v = shift_chunk(cur, nxt, s >> 1);
+    if (8 * c < lo || 8 * c + 8 > hi) {          // the grid's edges
+        // the halves of the word that holds columns b, b + 1
+        auto keep = [lo, hi](int b) {
+            return (b >= lo && b < hi ? 0x0000FFFFu : 0u)
+                 | (b + 1 >= lo && b + 1 < hi ? 0xFFFF0000u : 0u);
+        };
+        v.x &= keep(8 * c);
+        v.y &= keep(8 * c + 2);
+        v.z &= keep(8 * c + 4);
+        v.w &= keep(8 * c + 6);
+    }
+    return v;
+}
+
+// Shift a staged row of n + 1 chunks in place to n aligned chunks
+// (aligned_chunk), every value zeroed when !ok (a row that was not
 // copied); one thread per row, once the copies have landed.
 __device__ __forceinline__ void align_row(bf16* row, int n, int s, int lo,
                                           int hi, bool ok)
@@ -228,19 +253,7 @@ __device__ __forceinline__ void align_row(bf16* row, int n, int s, int lo,
 #pragma unroll 8
     for (int c = 0; c < n; ++c) {
         const uint4 nxt = r[c + 1];
-        uint4 v = shift_chunk(cur, nxt, s >> 1);
-        if (8 * c < lo || 8 * c + 8 > hi) {      // the grid's edges
-            // the halves of the word that holds columns b, b + 1
-            auto keep = [lo, hi](int b) {
-                return (b >= lo && b < hi ? 0x0000FFFFu : 0u)
-                     | (b + 1 >= lo && b + 1 < hi ? 0xFFFF0000u : 0u);
-            };
-            v.x &= keep(8 * c);
-            v.y &= keep(8 * c + 2);
-            v.z &= keep(8 * c + 4);
-            v.w &= keep(8 * c + 6);
-        }
-        r[c] = v;
+        r[c] = aligned_chunk(cur, nxt, s, c, lo, hi);
         cur = nxt;
     }
 }
@@ -297,18 +310,49 @@ __device__ __forceinline__ void copy_fields(
     }
 }
 
-// Shift every staged field row into place, one thread per row, and end
-// with a barrier that makes the staged tile visible to every warp.
+// Shift every staged field row into place and end with a barrier that
+// makes the staged tile visible to every warp.  One thread per row where
+// the rows are more than half the block's threads (B2's three fields);
+// otherwise (one field) a row's 2·nk chunks are split among tpr = 2 or 4
+// consecutive lanes, each of which reads its part and the next part's
+// first chunk before any lane of the row writes.
 template <int NF>
 __device__ __forceinline__ void align_fields(
     const Layout& L, const bf16* const (&fld)[NF], const Window& W, int i0,
     int j0, int Ngx, int Ngy)
 {
-    for (int row = threadIdx.x; row < NF * L.rows; row += THREADS) {
-        const FieldRow<NF> r(L, fld, row, W, i0, j0, Ngx, Ngy);
-        align_row(L.s + row * L.sp, 2 * L.nk,
-                  (int)(reinterpret_cast<uintptr_t>(r.p) & 15), r.lo, r.hi,
-                  r.ok);
+    const int nrows = NF * L.rows;
+    if (2 * nrows > THREADS) {
+        for (int row = threadIdx.x; row < nrows; row += THREADS) {
+            const FieldRow<NF> r(L, fld, row, W, i0, j0, Ngx, Ngy);
+            align_row(L.s + row * L.sp, 2 * L.nk,
+                      (int)(reinterpret_cast<uintptr_t>(r.p) & 15), r.lo,
+                      r.hi, r.ok);
+        }
+    } else {
+        constexpr int MAXM = 8;    // 2·nk <= 16 here (nrows <= 128), tpr >= 2
+        const int n = 2 * L.nk, tpr = 4 * nrows <= THREADS ? 4 : 2;
+        const int m = (n + tpr - 1) / tpr;           // chunks per lane
+        const unsigned lanes = ((1u << tpr) - 1u)
+                             << (threadIdx.x % 32 & ~(tpr - 1));
+        if ((int)threadIdx.x < nrows * tpr) {
+            const int row = threadIdx.x / tpr, c0 = threadIdx.x % tpr * m;
+            const FieldRow<NF> f(L, fld, row, W, i0, j0, Ngx, Ngy);
+            uint4* r = reinterpret_cast<uint4*>(L.s + row * L.sp);
+            uint4 v[MAXM + 1];
+#pragma unroll
+            for (int k = 0; k <= MAXM; ++k)
+                if (k <= m) v[k] = r[min(c0 + k, n)];
+            __syncwarp(lanes);
+            int s = (int)(reinterpret_cast<uintptr_t>(f.p) & 15);
+            int lo = f.lo, hi = f.hi;
+            if (!f.ok) lo = hi = s = 0;
+#pragma unroll
+            for (int k = 0; k < MAXM; ++k)
+                if (k < m && c0 + k < n)
+                    r[c0 + k] = aligned_chunk(v[k], v[k + 1], s, c0 + k, lo,
+                                              hi);
+        }
     }
     __syncthreads();
 }
@@ -391,6 +435,29 @@ __device__ __forceinline__ void band_products(
                 mma_bf16(ay[f][1], a[f], b[2], b[3]);
             }
         }
+    }
+}
+
+// Values per row of a staged output tile (store_tiles): 32 values and 8 of
+// padding, so that the fragments' rows fall in distinct banks.
+constexpr int OUT_PITCH = 40;
+
+// Store the window's rows of NOUT staged output tiles, output f's tile row
+// ii at tile + (f·TI + ii)·OUT_PITCH, to out + f·N (N: one output field of
+// the window's rows), coalesced: a warp stores one row at a time, lane =
+// column.
+template <int NOUT>
+__device__ __forceinline__ void store_tiles(bf16* __restrict__ out, size_t N,
+                                            const bf16* tile, const Window& W,
+                                            int i0, int j0, int Ngy)
+{
+#pragma unroll
+    for (int task = threadIdx.x; task < NOUT * TI * TJ; task += THREADS) {
+        const int fr = task / TJ, jj = task % TJ;   // output f's row ii
+        const int f = fr / TI, ii = fr % TI, i = i0 + ii, j = j0 + jj;
+        if (i >= W.r0 && i < W.r1 && j < Ngy)
+            out[f * N + (size_t)(i - W.r0) * Ngy + j] =
+                tile[fr * OUT_PITCH + jj];
     }
 }
 

@@ -34,7 +34,7 @@
 //      sums) and with P halo columns (sy, for the y sums), and the
 //      coefficient pairs of the tile's rows (cx) and columns (cy), in shared
 //      memory, once, with coalesced asynchronous copies (cp.async; zeros
-//      outside the grid; a bf16 field with widening loads, see stage).
+//      outside the grid).
 //   2. y sums: lane = row of the tile, each warp takes NG consecutive
 //      columns.  The taps depend on the column only, so they are the same
 //      for the 32 lanes of a warp: no divergence, every coefficient read is
@@ -45,17 +45,13 @@
 //      rows, the same way; the sums stay in registers.
 //   4. After a barrier the caller's epilogue reads its nodes' y sums from sk
 //      and writes the outputs, coalesced along j.
-// Field type T: float, or __nv_bfloat16 as the reference's Pallas kernels
-// take it.  A bf16 field is widened to f32 where it is staged (stage) and
-// where the epilogue loads its pointwise values (to_f); everything in shared
-// memory, every product and every sum is f32, and the output is rounded to
-// the field type once, where it is written (store).  The host hands a bf16
-// launch the coefficient tables and masses rounded to bf16 and held as f32
-// (sem_tpu_torch.ops.kernels), and the entry point rounds coef (bf16_round),
-// so a bf16 launch computes the reference kernel's bf16 function: bf16
-// operands, f32 arithmetic, one rounding.  At
-// f32, stage, to_f and store are a cp.async, the identity and a plain
-// store, so the f32 kernels keep the bits recorded for them.
+// The tap loops take f32 fields.  Kernels on bf16 fields, as the
+// reference's Pallas kernels also take them, run their band products on the
+// tensor cores (mma.cuh) and share the epilogues below: to_f widens a bf16
+// pointwise value, store rounds an output to the field type once, and the
+// entry point rounds coef (bf16_round), so a bf16 launch computes the
+// reference kernel's bf16 function: bf16 operands, f32 arithmetic, one
+// rounding.  At f32, to_f and store are the identity and a plain store.
 //
 // P is a template parameter for the orders the repo runs (4, 8, 16).  There
 // a warp's NG nodes lie in one element, so every tap loop has a trip count
@@ -126,22 +122,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 __device__ __forceinline__ void cp_async_wait_all()
 {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// One field value into shared memory as f32, zero when !valid (src is then
-// not read, but must be a valid address): a 4-byte cp.async for an f32
-// field; for bf16 a load widened with __bfloat162float (cp.async copies
-// bytes, it cannot widen), visible to the block after the same barrier.
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      bool valid)
-{
-    cp_async4(dst, src, valid);
-}
-
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
-                                      bool valid)
-{
-    *dst = valid ? __bfloat162float(*src) : 0.f;
 }
 
 // A pointwise value as f32, and an output rounded to the field type.
@@ -294,9 +274,9 @@ __device__ __forceinline__ void line_sums(
 // row g of field f is fld[f] + (g - W.g_in)·Ngy.  Returns in kx/gx the x
 // sums of this thread's nodes (i0 + warp*NG + g, j0 + lane); their y sums
 // are L.ysum(f, 0/1, warp*NG + g, lane).
-template <int PT, int NF, int NG, class T>
+template <int PT, int NF, int NG>
 __device__ __forceinline__ void tile_band_sums(
-    const Layout& L, const T* const (&fld)[NF],
+    const Layout& L, const float* const (&fld)[NF],
     const float2* __restrict__ kgx, const float2* __restrict__ kgy,
     const Window& W, int i0, int j0, int Ngx, int Ngy, int p_rt,
     float (&kx)[NF][NG], float (&gx)[NF][NG])
@@ -327,21 +307,22 @@ __device__ __forceinline__ void tile_band_sums(
             for (int a = warp; a < TI + 2 * P; a += NWARP) {
                 const int i = i0 - P + a;
                 const bool ok = i >= g_lo && i < g_hi && j < Ngy;
-                stage(sx + a * TJ,
-                      ok ? fld[f] + (size_t)(i - W.g_in) * Ngy + j : fld[f],
-                      ok);
+                cp_async4(sx + a * TJ,
+                          ok ? fld[f] + (size_t)(i - W.g_in) * Ngy + j
+                             : fld[f],
+                          ok);
             }
             for (int ii = warp; ii < TI; ii += NWARP) {
                 const int i = i0 + ii;
                 const bool row_ok = i >= g_lo && i < g_hi;
                 float* sy = L.sy + f * TI * L.syp + ii * L.syp;
-                const T* row =
+                const float* row =
                     fld[f] + (size_t)(row_ok ? i - W.g_in : 0) * Ngy;
 #pragma unroll
                 for (int b = lane; b < TJ + 2 * P; b += 32) {
                     const int jb = j0 - P + b;
                     const bool ok = row_ok && jb >= 0 && jb < Ngy;
-                    stage(sy + b, ok ? row + jb : fld[f], ok);
+                    cp_async4(sy + b, ok ? row + jb : fld[f], ok);
                 }
             }
         }

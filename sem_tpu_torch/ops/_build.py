@@ -49,8 +49,8 @@ _SIGNATURES = {
     "sem_apply_coupled_system_strip_f32": [_P] * 13 + [_F] + [_I] * 7 + [_P],
 }
 # the bf16 entry points take the same arguments: bf16 fields and outputs,
-# bf16-rounded f32 tables (B1/B3) or bf16 band blocks (B2/B4) in the place
-# of kgx, kgy, and bf16-rounded f32 masses
+# the bf16 band blocks bx, by in the place of kgx, kgy, and bf16-rounded f32
+# masses
 _SIGNATURES.update({name[:-3] + "bf16": args
                     for name, args in list(_SIGNATURES.items())})
 # P, out[3]: the tensor-core kernels' staged geometry (mma.cuh)

@@ -12,8 +12,8 @@ Both kernels read the assembled 1D operators in compact band storage
 (:func:`tile_coefficients`), which is exact because every nonzero of the C0
 operators lies within half-band P of the diagonal (checked when built), and
 run only the taps of :func:`band_tap_ranges`, outside of which every
-coefficient is a structural zero; B2 at bfloat16 reads them as the dense
-band blocks of its 32-node tiles (:func:`band_blocks`) and runs only the
+coefficient is a structural zero; at bfloat16 they read them as the dense
+band blocks of their 32-node tiles (:func:`band_blocks`) and run only the
 16-wide k chunks that hold such taps.  They take orders ``1 ≤ P ≤ 64``
 (:data:`P_MAX`, the reference's limit) and raise for others.  The row-strip
 kernels B3/B4 of :mod:`sem_tpu_torch.ops.sharded` are the same kernels on a
@@ -24,11 +24,10 @@ bfloat16 fields (every floating operand of a call in one dtype; B2's mask
 is bool).  At bfloat16 they compute the reference kernel's bf16 function:
 the fields, the band coefficients, the 1D masses and ``coef`` rounded to
 bf16, every product exact and every sum in f32, one rounding to bf16 at the
-output (:func:`band_operators` and :func:`tile_coefficients` hold those
-rounded constants as f32).  B2/B4 at bf16 run their band products on the
-tensor cores (``csrc/mma.cuh``: bf16 operands, f32 accumulation), reading
-the band blocks of :func:`band_blocks` in bf16.  The solvers' chunks are
-f32; bf16 serves speed runs.
+output (:func:`band_operators` holds the rounded masses as f32).  B1-B4 at
+bf16 run their band products on the tensor cores (``csrc/mma.cuh``: bf16
+operands, f32 accumulation), reading the band blocks of :func:`band_blocks`
+in bf16.  The solvers' chunks are f32; bf16 serves speed runs.
 
 A wrapper launches its kernel for CUDA tensors of those dtypes and raises
 for any other dtype on the card; a build or launch failure raises.  Only a
@@ -127,8 +126,9 @@ def band_operators(grid: Grid2D, dtype, device) -> dict:
     ``K1y, G1y`` (``(2P+1, Ngy)``) and the 1D mass vectors for fields of
     ``dtype`` (bfloat16: bf16-rounded float32 values, :func:`_field_const`);
     cached on the grid per dtype and device.  The plain versions read the
-    band tables (no kernel does: the kernels read
-    :func:`tile_coefficients`), the kernels the mass vectors."""
+    band tables (no kernel does: the kernels read :func:`tile_coefficients`
+    at f32 and :func:`band_blocks` at bf16), the kernels the mass
+    vectors."""
     P = grid.P
 
     def const(name, host):
@@ -144,23 +144,20 @@ def band_operators(grid: Grid2D, dtype, device) -> dict:
     }
 
 
-def tile_coefficients(grid: Grid2D, device, dtype=torch.float32) -> dict:
-    """The f32 coefficient tables of the tiled kernels B1-B4 for fields of
-    ``dtype`` (bfloat16: the values rounded to bf16): the interleaved pairs
-    ``kgx[i, t] = (K1x, G1x)[i, i-P+t]`` (``(Ngx + TILE, 2P+1, 2)``) and
-    ``kgy`` of the y operators, with :data:`TILE` rows of zeros at the end (a
-    tile's reads past the grid's edge stay inside them); cached on the grid
-    per device and dtype."""
+def tile_coefficients(grid: Grid2D, device) -> dict:
+    """The f32 coefficient tables of the tiled kernels B1-B4 on f32 fields:
+    the interleaved pairs ``kgx[i, t] = (K1x, G1x)[i, i-P+t]``
+    (``(Ngx + TILE, 2P+1, 2)``) and ``kgy`` of the y operators, with
+    :data:`TILE` rows of zeros at the end (a tile's reads past the grid's
+    edge stay inside them); cached on the grid per device."""
     P = grid.P
-    if dtype != torch.bfloat16:
-        dtype = torch.float32
 
     def pairs(K, G):
         kg = np.stack([band_storage(K, P), band_storage(G, P)], axis=-1)
         return np.concatenate([kg, np.zeros((TILE,) + kg.shape[1:])])
 
-    return {name: _field_const(grid, ("tile", name), lambda: pairs(K, G),
-                               dtype, device)
+    return {name: device_const(grid, ("tile", name), lambda: pairs(K, G),
+                               torch.float32, device)
             for name, K, G in (("kgx", grid.K1x, grid.G1x),
                                ("kgy", grid.K1y, grid.G1y))}
 
@@ -189,7 +186,7 @@ def library_mma_geometry(P: int) -> tuple[int, int, int]:
 
 
 def band_blocks(grid: Grid2D, device) -> dict:
-    """The bf16 band blocks of the tensor-core kernels B2/B4 at bf16
+    """The bf16 band blocks of the tensor-core kernels B1-B4 at bf16
     (``csrc/mma.cuh``), in the layout a block copies flat into shared
     memory: ``bx[t, 0, r, c] = K1x[t·TILE + r, t·TILE − Q + c]`` and
     ``bx[t, 1, r, c]`` the same of ``G1x`` for each tile row ``t``
@@ -392,22 +389,21 @@ def _launch(name: str, entry: str, sfx: str, device, *args):
     LAUNCHES[name if sfx == "f32" else f"{name}_{sfx}"] += 1
 
 
-def _band_ptrs(grid: Grid2D, device, dtype=torch.float32,
-               blocks: bool = False) -> tuple:
+def _band_ptrs(grid: Grid2D, device, dtype=torch.float32) -> tuple:
     """Device addresses of the constants of B1-B4 for fields of ``dtype``:
-    the f32 coefficient pairs (kgx, kgy; bfloat16: the bf16-rounded tables)
-    or, with ``blocks`` at bfloat16 (B2/B4's tensor-core kernel), the bf16
-    band blocks (bx, by; :func:`band_blocks`), then the f32 masses (m1x,
-    m1y); cached on the grid beside the tensors that own them."""
+    the f32 coefficient pairs (kgx, kgy; :func:`tile_coefficients`) or, at
+    bfloat16 (the tensor-core kernels), the bf16 band blocks (bx, by;
+    :func:`band_blocks`), then the masses (m1x, m1y; f32, bf16-rounded at
+    bfloat16); cached on the grid beside the tensors that own them."""
     cache = grid.__dict__.setdefault("_band_ptrs", {})
-    key = (device, dtype, blocks and dtype == torch.bfloat16)
+    key = (device, dtype)
     ptrs = cache.get(key)
     if ptrs is None:
         if not 1 <= grid.P <= P_MAX:
             raise ValueError(f"the CUDA kernels B1-B4 take orders 1 <= P <= "
                              f"{P_MAX}, got P={grid.P}")
-        t = (band_blocks(grid, device) if key[2]
-             else tile_coefficients(grid, device, dtype))
+        t = (band_blocks(grid, device) if dtype == torch.bfloat16
+             else tile_coefficients(grid, device))
         c = band_operators(grid, dtype, device)
         ptrs = cache[key] = tuple(a.data_ptr() for a in (
             *t.values(), c["m1x"], c["m1y"]))
@@ -442,7 +438,7 @@ def apply_coupled_system_kernel(grid: Grid2D, q, ul, vl, jac, mb, coef
     _launch("apply_coupled_system", "sem_apply_coupled_system", sfx,
             q.device, out.data_ptr(), q.data_ptr(), ul.data_ptr(),
             vl.data_ptr(), *(j.data_ptr() for j in jac), mb.data_ptr(),
-            *_band_ptrs(grid, q.device, q.dtype, blocks=True), float(coef),
+            *_band_ptrs(grid, q.device, q.dtype), float(coef),
             grid.Ngx, grid.Ngy, grid.P)
     return out
 

@@ -181,7 +181,7 @@ def apply_coupled_system_sharded(grid: Grid2D, rows, q_ext, ul, vl, jac, mb,
             sfx, q_ext.device, out.data_ptr(), q_ext.data_ptr(),
             ul.data_ptr(), vl.data_ptr(), *(j.data_ptr() for j in jac),
             mb.data_ptr(),
-            *_band_ptrs(grid, q_ext.device, dt, blocks=True), float(coef),
+            *_band_ptrs(grid, q_ext.device, dt), float(coef),
             r0, r1 - r0, *row_window_tiles(r0, r1), grid.Ngx, grid.Ngy,
             grid.P)
     return out

@@ -113,7 +113,7 @@ def main(argv=None) -> None:
             ptrs = (out.data_ptr(), qt.data_ptr(), ul.data_ptr(),
                     vl.data_ptr(), *(j.data_ptr() for j in jt),
                     mk.data_ptr(),
-                    *kernels._band_ptrs(grid, dev, dt, blocks=True), 37.0,
+                    *kernels._band_ptrs(grid, dev, dt), 37.0,
                     *extra, grid.Ngx, grid.Ngy, grid.P)
             sfx = kernels._SUFFIX[dt]
             pieces = {
@@ -122,8 +122,8 @@ def main(argv=None) -> None:
                 "check_us": alone_us(lambda: kernels._check(
                     name, (qt, ul, vl, *jt, mk), shapes, masks=1)),
                 "alloc_us": alone_us(lambda: qt.new_empty(3 * nn)),
-                "ptrs_us": alone_us(lambda: kernels._band_ptrs(
-                    grid, dev, dt, blocks=True)),
+                "ptrs_us": alone_us(lambda: kernels._band_ptrs(grid, dev,
+                                                               dt)),
                 "launch_us": alone_us(lambda: kernels._launch(
                     name, entry, sfx, dev, *ptrs))}
             split[f"{sfx}_{turn}"] = " ".join(

@@ -1,5 +1,6 @@
 """Port parity at bfloat16: kernels B1-B4 on bf16 fields, as ``sem_tpu``'s
-four Pallas kernels take them, and the Krylov solvers' bf16 basis storage.
+four Pallas kernels take them, the bf16 band blocks their tensor-core
+kernels read, and the Krylov solvers' bf16 basis storage.
 
 The plain versions of B1/B2 (and B3/B4 on row strips) at bf16 against the
 reference's Pallas kernels at bf16 in interpret mode (B3/B4 under the
@@ -248,23 +249,81 @@ def test_bf16_cpu_calls_never_build_or_count(monkeypatch):
 
 
 def test_bf16_constants_are_rounded_and_f32_tables_keep_their_bits():
-    """A bf16 launch reads K1x, G1x, K1y, G1y, m1x, m1y rounded to bf16 and
+    """A bf16 launch reads K1x, G1x, K1y, G1y as bf16 band blocks holding
+    the f32 tables' values rounded to bf16, and m1x, m1y rounded to bf16 and
     held as f32, cached beside (not instead of) the f32 tables, which stay
     the f64 constants rounded to f32."""
     grid = Grid2D(5, 3, 4, 1.0, 1.3)
-    cpu = torch.device("cpu")
+    P, cpu = grid.P, torch.device("cpu")
     t32 = kernels.tile_coefficients(grid, cpu)
-    t16 = kernels.tile_coefficients(grid, cpu, BF16)
+    blocks = kernels.band_blocks(grid, cpu)
     c32 = kernels.band_operators(grid, torch.float32, cpu)
     c16 = kernels.band_operators(grid, BF16, cpu)
-    for a32, a16 in [(t32[k], t16[k]) for k in ("kgx", "kgy")] + [
-            (c32[k], c16[k]) for k in c32]:
-        assert a16.dtype == torch.float32 and a32.dtype == torch.float32
-        assert torch.equal(a16, a32.to(BF16).float())
+    for k in c32:
+        assert c16[k].dtype == torch.float32 and c32[k].dtype == torch.float32
+        assert torch.equal(c16[k], c32[k].to(BF16).float())
+    Q = kernels.mma_geometry(P)[0]
+    for name, tab, n in (("bx", t32["kgx"], grid.Ngx),
+                         ("by", t32["kgy"], grid.Ngy)):
+        assert blocks[name].dtype == BF16 and tab.dtype == torch.float32
+        i = torch.arange(n)[:, None]
+        k = i - P + torch.arange(2 * P + 1)[None, :]     # band tap t's node
+        ok = (k >= 0) & (k < n)
+        t, r, c = i // 32, i % 32, k - 32 * (i // 32) + Q
+        for op in (0, 1):
+            got = blocks[name][t.expand_as(k), op, r.expand_as(k),
+                               c.clamp(min=0)]
+            assert torch.equal(got[ok], tab[:n, :, op][ok].to(BF16))
     assert torch.equal(c32["m1x"], torch.tensor(grid.m1x).float())
     assert torch.equal(t32["kgx"][:grid.Ngx, :, 0], torch.as_tensor(
         kernels.band_storage(grid.K1x, grid.P)).float())
     assert kernels.tile_coefficients(grid, cpu)["kgx"] is t32["kgx"]
+    assert kernels.band_blocks(grid, cpu)["bx"] is blocks["bx"]
+
+
+def test_band_ptrs_hand_b1_and_b3_the_band_blocks(monkeypatch):
+    """At bf16 every kernel's constants are the bf16 band blocks of
+    ``band_blocks`` and the bf16-rounded masses (B1 and B3 run their band
+    products on the tensor cores, as B2 and B4 do); at f32 the coefficient
+    pairs of ``tile_coefficients``.  The B1 and B3 wrappers hand their C
+    entry points exactly those addresses (traced on ``meta`` tensors, which
+    take the card's path with no data and no launch)."""
+    grid = Grid2D(4, 3, 4, 1.0, 1.3)
+    cpu = torch.device("cpu")
+    blocks = kernels.band_blocks(grid, cpu)
+    c16 = kernels.band_operators(grid, BF16, cpu)
+    want = tuple(t.data_ptr() for t in (blocks["bx"], blocks["by"],
+                                        c16["m1x"], c16["m1y"]))
+    assert kernels._band_ptrs(grid, cpu, BF16) == want
+    t32 = kernels.tile_coefficients(grid, cpu)
+    c32 = kernels.band_operators(grid, torch.float32, cpu)
+    assert kernels._band_ptrs(grid, cpu) == tuple(
+        t.data_ptr() for t in (t32["kgx"], t32["kgy"], c32["m1x"],
+                               c32["m1y"]))
+    band_ptrs, launched = kernels._band_ptrs, []
+
+    def on_cpu(g, device, dtype=torch.float32):
+        assert device.type == "meta"
+        return band_ptrs(g, cpu, dtype)
+
+    def launch(name, entry, sfx, device, *args):
+        launched.append((entry, sfx, args[4:8]))
+
+    for mod in (kernels, sharded):
+        monkeypatch.setattr(mod, "_band_ptrs", on_cpu)
+        monkeypatch.setattr(mod, "_launch", launch)
+
+    def meta(n):
+        return torch.empty(n, dtype=BF16, device="meta")
+
+    N, P, Ngy = grid.N, grid.P, grid.Ngy
+    kernels.apply_system_kernel(grid, meta(N), meta(N), meta(N), 7.5)
+    rows = row_strips(grid.Ngx, 2, P)[1]
+    n = (rows[1] - rows[0]) * Ngy
+    sharded.apply_system_sharded(grid, rows, meta(n), meta(n),
+                                 meta(n + 2 * P * Ngy), 7.5)
+    assert launched == [("sem_apply_system", "bf16", want),
+                        ("sem_apply_system_strip", "bf16", want)]
 
 
 # ------------------- band blocks of the tensor-core B2/B4 ------------------ #
@@ -317,6 +376,34 @@ def _chunks(first, m, n, P, origin):
     last = min(first + m - 1, n - 1)
     k0, k1 = first - P + t0[first], last - P + t1[last] - 1
     return 16 * ((k0 - origin) // 16), 16 * ((k1 - origin) // 16 + 1)
+
+
+@pytest.mark.parametrize("P,Ne", [(4, 9), (8, 5), (16, 3), (7, 6)])
+def test_band_blocks_cover_every_tap(P, Ne):
+    """Every tap that ``band_tap_ranges`` gives a row of an operator (the
+    taps the f32 kernels run) lies in the staged columns of the row's band
+    block and holds the operator's value there, rounded to bf16; every
+    other value of the block is zero.  P = 4, 8 and 16 (the compile-time
+    orders of the tensor-core kernels) and 7 (a runtime order)."""
+    grid = Grid2D(P, Ne, Ne + 1, 1.0, 1.3)
+    blocks = kernels.band_blocks(grid, "cpu")
+    Q, nk, pitch = kernels.mma_geometry(P)
+    for name, A, op in (("bx", grid.K1x, 0), ("bx", grid.G1x, 1),
+                        ("by", grid.K1y, 0), ("by", grid.G1y, 1)):
+        n = A.shape[0]
+        t0, t1 = kernels.band_tap_ranges(n, P)
+        block = blocks[name][:, op].float().numpy()
+        covered = np.zeros(block.shape, bool)
+        for i in range(n):
+            t = np.arange(t0[i], t1[i])
+            k = i - P + t
+            c = k - 32 * (i // 32) + Q
+            assert 0 <= c.min() and c.max() < 16 * nk
+            want = torch.as_tensor(A[i, k]).to(BF16).float().numpy()
+            assert np.array_equal(block[i // 32, i % 32, c], want)
+            covered[i // 32, i % 32, c] = True
+        assert not block[~covered].any()
+        assert np.count_nonzero(block) > 0
 
 
 @pytest.mark.parametrize("P,Ne", BLOCK_SIZES + [(1, 40), (64, 2)])
@@ -408,6 +495,50 @@ def _ulps(got, ref) -> torch.Tensor:
     return (line(got) - line(ref)).abs()
 
 
+def _check_one_ulp_above_floor(got, ref):
+    """At most one bf16 ulp between ``got`` and ``ref`` per element wherever
+    they differ by more than the absolute floor 1e-5·max|ref| (outputs that
+    cancel to near zero are held to that floor)."""
+    assert got.dtype == BF16
+    floor = ATOL_REL * float(ref.float().abs().max())
+    far = (_ulps(got, ref) > 1) & ((got.float() - ref.float()).abs() > floor)
+    assert not bool(far.any()), int(far.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ne", [32, 64])
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_cuda_b1_b3_bf16_tensor_cores_within_one_ulp(R, Ne):
+    """B1 and B3 at bf16 (the tensor-core kernel) at P16 32×32 and 64×64
+    against their plain versions: at most one bf16 ulp per output element
+    above the absolute floor 1e-5·max|ref|; the R strips, concatenated, give
+    the whole-grid launch's bits; every launch counted at bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    grid = Grid2D(16, Ne, Ne, 1.0, 1.0)
+    (u, v, w, c), _ = _b12_args(grid, 32, dev)
+    n0 = dict(kernels.LAUNCHES)
+    got = kernels.apply_system_best(grid, u, v, w, c)
+    _check_one_ulp_above_floor(got, kernels.apply_system_plain(grid, u, v, w,
+                                                               c))
+    parts = []
+    strips = row_strips(grid.Ngx, R, grid.P)
+    for rows in strips:
+        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+        a = (grid, rows, u[sl], v[sl], sharded.strip_with_halo(grid, rows, w),
+             c)
+        out = sharded.apply_system_sharded(*a)
+        _check_one_ulp_above_floor(out,
+                                   sharded.apply_system_sharded_plain(*a))
+        parts.append(out)
+    assert torch.equal(torch.cat(parts), got)
+    assert kernels.LAUNCHES["apply_system_bf16"] == n0["apply_system_bf16"] + 1
+    assert (kernels.LAUNCHES["apply_system_sharded_bf16"]
+            == n0["apply_system_sharded_bf16"] + len(strips))
+    assert kernels.LAUNCHES["apply_system"] == n0["apply_system"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 2, 4])
 def test_cuda_b2_b4_bf16_tensor_cores_within_one_ulp(R):
@@ -422,14 +553,7 @@ def test_cuda_b2_b4_bf16_tensor_cores_within_one_ulp(R):
     grid = Grid2D(16, 64, 64, 1.0, 1.0)
     _, (q, ul, vl, jac, mb, c) = _b12_args(grid, 31, dev)
     n0 = dict(kernels.LAUNCHES)
-
-    def check(got, ref):
-        assert got.dtype == BF16
-        floor = ATOL_REL * float(ref.float().abs().max())
-        far = (_ulps(got, ref) > 1) & ((got.float() - ref.float()).abs()
-                                       > floor)
-        assert not bool(far.any()), int(far.sum())
-
+    check = _check_one_ulp_above_floor
     got = kernels.apply_coupled_system_best(grid, q, ul, vl, jac, mb, c)
     check(got, kernels.apply_coupled_system_plain(grid, q, ul, vl, jac, mb,
                                                   c))

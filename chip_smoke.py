@@ -15,7 +15,13 @@ the last line):
    2e-5·max|ref|; then on bfloat16 fields (the reference's Pallas kernels'
    other dtype) vs its plain version at bf16, within one bf16 ulp
    (``BF16_TOL``: rtol 2^-7, atol 1e-5·max|ref|);
-3. kernel B2 (NS coupled saddle matvec), the same checks;
+3. kernel B2 (NS coupled saddle matvec), the same checks; then, for both,
+   the dense route above the kernels' order limit ``P_MAX``: at P=65 2×1
+   the dispatchers ``apply_*_best`` and the R = 1, 3 strips of the B3/B4
+   wrappers (halos cut from the full field) at f32 and bf16 against the
+   plain versions (2e-5·max|ref| at f32, 2^-6·max|ref| at bf16, where the
+   dense path rounds its products and glue to bf16), the launch counts
+   reset just before and read just after: every one 0;
 4. each whole-grid kernel at its main-path shape (B1 at P=16 32×32 and
    also 64×64, B2 at P=16 64×64): ``device_us`` (20 wrapper calls captured
    in one CUDA graph, the replay timed with CUDA events, median of 20
@@ -48,7 +54,9 @@ the last line):
    witness of that program; the kernel launch counts are reset just before
    and read just after, and B1's and B2's must be > 0;
 7. kernels B3/B4 (B1/B2 on row strips) at P=4 8×8, P=16 32×32 and P=16
-   64×64 with R = 1, 2 and 4 strips in this process, each strip's halo cut
+   64×64 with R = 1, 2 and 4 strips in this process, and strips thinner
+   than P (``STRIP_COUNTS``: R = 9, 16 at P=4 8×8, 64 at P=16 32×32, strips
+   of 2-4 and 8-9 rows), each strip's halo cut
    from the full field: the concatenated strips against the plain strip
    versions and the f64 dense path (tolerance 2e-5·max|ref|), and against
    B1's/B2's output, which must be the same bits (B3/B4 are B1/B2's kernels
@@ -69,9 +77,10 @@ the last line):
    f32 (run after the counts are read).  Then B1-B4 at bf16 (the
    tensor-core kernels) against their plain versions per output element,
    B1/B3 at P=16 32×32 and 64×64, B2/B4 at P=16 64×64, whole grid and R =
-   1, 2, 4 strips: at most one bf16 ulp wherever the error exceeds
-   1e-5·max|ref| (the elements beyond one ulp under that floor counted, any
-   above it printed with its place), the strips the whole-grid bits; their
+   1, 2, 4 strips (and 64 at 32×32): at most one bf16 ulp wherever the
+   error exceeds 1e-5·max|ref| (the elements beyond one ulp under that
+   floor counted, any above it printed with its place), the strips the
+   whole-grid bits; their
    device, call and host µs, bound and share at each of those shapes (R=2
    strip 0 for B3/B4) beside the f32 kernel's of this call (phases 4 and 8)
    and the bf16 cuSPARSE µs;
@@ -179,9 +188,11 @@ the last line):
     together: the convection-diffusion example (B1 launched), the lid cavity
     ``--quick`` and full (B2), the sequential Boussinesq JNK full and
     ``--quick`` GS and NJ (B1 and B2); then ``boussinesq_parallel --ranks
-    2`` (JNK P4 8×8, its own two rank processes) alone, whose per-rank
-    counts must show B3 and B4 launched on each rank.  Each must exit 0 and
-    print ``CHECK OK``;
+    2`` (JNK P4 8×8, its own two rank processes) alone, and then
+    ``--quick --ranks 8`` (the reference's own command: GS P3 3×3, 10 rows
+    over eight ranks on the one card, strips of one and two rows), whose
+    per-rank counts must show B3 and B4 launched on each rank.  Each must
+    exit 0 and print ``CHECK OK``;
 21. ``python -m sem_tpu_torch.bench``: its JSON line on one line; the
     headline rate must be > 0, the coupled solve's u-anchor 3.653 ± 1e-3, B1
     launched;
@@ -280,6 +291,10 @@ RANK_TIMEOUT_S = 600
 # ulp (8 significant bits) relative, and 1e-5·max|ref| absolute
 BF16_TOL = dict(rtol=2.0 ** -7, atol_rel=1e-5)
 BF16_POWER_STEPS = 10  # phase 8b
+# phases 7 and 8b: the strip counts per grid; R = 9, 16 at P4 8×8 (33 rows)
+# and R = 64 at P16 32×32 (513 rows) give strips thinner than P
+STRIP_COUNTS = {"P4_8x8": (1, 2, 4, 9, 16), "P16_32x32": (1, 2, 4, 64),
+                "P16_64x64": (1, 2, 4)}
 # phases 11-13: the grids and tolerance of the main path at Ra=1e5
 PTC_RA1E5 = dict(NORTH_STAR, Ra=1e5, mode="PTC")
 # de Vahl Davis (1983): u_max·RePr on x=1/2, v_max·RePr on y=1/2, by Ra
@@ -594,6 +609,36 @@ def main(kernels_only=False):
 
     walls.mark("1_build")
 
+    # the strip kernels B3/B4, their plain versions, and their whole-grid
+    # kernels B1/B2
+    strip_fns = {
+        "apply_system_sharded": (sharded.apply_system_sharded,
+                                 sharded.apply_system_sharded_plain),
+        "apply_coupled_system_sharded": (
+            sharded.apply_coupled_system_sharded,
+            sharded.apply_coupled_system_sharded_plain)}
+    whole = {"apply_system_sharded": "apply_system",
+             "apply_coupled_system_sharded": "apply_coupled_system"}
+    strip_of = {v: k for k, v in whole.items()}
+
+    def strip_args(name, grid, rows, a):
+        """One strip's arguments from the whole-grid inputs ``a``."""
+        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+        if name == "apply_system_sharded":
+            u, v, w, coef = a
+            return (grid, rows, u[sl], v[sl],
+                    sharded.strip_with_halo(grid, rows, w), coef)
+        q, u, v, jac, mb, coef = a
+        return (grid, rows, sharded.strip_with_halo(grid, rows, q, 3), u[sl],
+                v[sl], tuple(j[sl] for j in jac), mb[sl], coef)
+
+    def on_strips(name, fn, grid, R, a):
+        """The strips' outputs in the whole grid's layout."""
+        outs = [fn(*strip_args(name, grid, rows, a)).reshape(-1, (
+            rows[1] - rows[0]) * grid.Ngy)
+            for rows in row_strips(grid.Ngx, R, grid.P)]
+        return torch.cat(outs, dim=1).reshape(-1)
+
     # ---- 2./3. kernels vs plain and vs the f64 dense path ----
     # the main path applies B1 on the CD grid (P16 32×32) and B2 on the NS
     # grid (P16 64×64); the JSON rows report each kernel at its own shape
@@ -642,30 +687,41 @@ def main(kernels_only=False):
             if grid is main_grid[name]:
                 report[name + "_bf16"]["max_abs_err"] = err
 
+    # above P_MAX the kernels take no order: the dispatchers and the strip
+    # wrappers take the dense path (cuBLAS), with no launch
+    g65 = Grid2D(kernels.P_MAX + 1, 2, 1, 1.0, 1.0)
+    best = {"apply_system": kernels.apply_system_best,
+            "apply_coupled_system": kernels.apply_coupled_system_best}
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    res65, ok65 = {}, True
+    for dt, tag, tol in ((torch.float32, "f32", 2e-5),
+                         (bf16, "bf16", 2.0 ** -6)):
+        for name, (_, pfn, _) in kernel_fns.items():
+            a = inputs(g65, dt)[name]
+            sname = strip_of[name]
+            cases = [("whole", best[name](g65, *a), pfn(g65, *a))] + [
+                (f"R={R}", on_strips(sname, strip_fns[sname][0], g65, R, a),
+                 on_strips(sname, strip_fns[sname][1], g65, R, a))
+                for R in (1, 3)]
+            torch.cuda.synchronize()
+            for where, got, ref in cases:
+                err, scale = max_err(got, ref)
+                res65[f"{name}:{where}:{tag}"] = f"{err:.3e}/{scale:.3e}"
+                ok65 &= got.dtype == dt and err <= tol * scale
+    launches65 = dict(kernels.LAUNCHES)
+    ok65 &= not any(launches65.values())
+    _line("dense_route", grid=g65.tag, N=g65.N,
+          max_abs_err_over_scale=res65,
+          tol="2e-5*scale (f32), 2^-6*scale (bf16)", launches=launches65,
+          ok=ok65)
+    if not ok65:
+        raise AssertionError(f"the dense route above P_MAX: errors {res65} "
+                             f"or launches {launches65}")
+
     walls.mark("2_3_kernel_checks")
 
     # ---- 4. timings at P=16 (inputs already on the card) ----
-    strip_fns = {
-        "apply_system_sharded": (sharded.apply_system_sharded,
-                                 sharded.apply_system_sharded_plain),
-        "apply_coupled_system_sharded": (
-            sharded.apply_coupled_system_sharded,
-            sharded.apply_coupled_system_sharded_plain)}
-    whole = {"apply_system_sharded": "apply_system",
-             "apply_coupled_system_sharded": "apply_coupled_system"}
-    strip_of = {v: k for k, v in whole.items()}
-
-    def strip_args(name, grid, rows, a):
-        """One strip's arguments from the whole-grid inputs ``a``."""
-        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
-        if name == "apply_system_sharded":
-            u, v, w, coef = a
-            return (grid, rows, u[sl], v[sl],
-                    sharded.strip_with_halo(grid, rows, w), coef)
-        q, u, v, jac, mb, coef = a
-        return (grid, rows, sharded.strip_with_halo(grid, rows, q, 3), u[sl],
-                v[sl], tuple(j[sl] for j in jac), mb[sl], coef)
-
     def measure(name, grid, rows, kfn, pfn, args):
         """Phase 4/8 measurements of kernel ``name`` (whole grid or strip)
         called as ``kfn(*args)``; its plain version ``pfn``."""
@@ -750,13 +806,6 @@ def main(kernels_only=False):
         main_strip_grid = {"apply_system_sharded": g32,
                            "apply_coupled_system_sharded": g64}
 
-        def on_strips(name, fn, grid, R, a):
-            """The strips' outputs in the whole grid's layout."""
-            outs = [fn(*strip_args(name, grid, rows, a)).reshape(-1, (
-                rows[1] - rows[0]) * grid.Ngy)
-                for rows in row_strips(grid.Ngx, R, grid.P)]
-            return torch.cat(outs, dim=1).reshape(-1)
-
         # ---- 7. kernels B3/B4 on row strips, halos cut from the field ----
         for name, (kfn, pfn) in strip_fns.items():
             for grid in (g4, g32, g64):
@@ -764,7 +813,7 @@ def main(kernels_only=False):
                 a64 = inputs(grid, torch.float64)[whole[name]]
                 ref64 = kernel_fns[whole[name]][2](grid, *a64)
                 b12 = kernel_fns[whole[name]][0](grid, *a32)
-                for R in (1, 2, 4):
+                for R in STRIP_COUNTS[grid.tag]:
                     got = on_strips(name, kfn, grid, R, a32)
                     ref = on_strips(name, pfn, grid, R, a32)
                     torch.cuda.synchronize()
@@ -791,7 +840,7 @@ def main(kernels_only=False):
             for grid in (g4, g32, g64):
                 a = inputs(grid, bf16)[whole[name]]
                 b12 = kernel_fns[whole[name]][0](grid, *a)
-                for R in (1, 2, 4):
+                for R in STRIP_COUNTS[grid.tag]:
                     got = on_strips(name, kfn, grid, R, a)
                     ref = on_strips(name, pfn, grid, R, a)
                     torch.cuda.synchronize()
@@ -925,7 +974,7 @@ def main(kernels_only=False):
             sname = strip_of[name]
             sfn, spfn = strip_fns[sname]
             nf = 3 if name == "apply_coupled_system" else 1
-            for R in (1, 2, 4):
+            for R in STRIP_COUNTS[grid.tag]:
                 outs, refs = [], []
                 for rows in row_strips(grid.Ngx, R, grid.P):
                     sa = strip_args(sname, grid, rows, a)
@@ -943,9 +992,10 @@ def main(kernels_only=False):
             err = (got.double() - ref.double()).abs()
             scale = float(ref.double().abs().max())
             far = (u > 1) & (err > BF16_TOL["atol_rel"] * scale)
+            above = u[err > BF16_TOL["atol_rel"] * scale]
             r = res[f"{name}:{grid.tag}:{where}"] = {
-                "max_ulps_above_floor": int(u[err > BF16_TOL["atol_rel"]
-                                              * scale].max()),
+                "max_ulps_above_floor": int(above.max()) if above.numel()
+                else 0,
                 "over_1ulp_under_floor": int(((u > 1) & ~far).sum()),
                 "over_1ulp_above_floor": int(far.sum())}
             if r["over_1ulp_above_floor"]:
@@ -2180,22 +2230,28 @@ def example_phase(smi):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    out = _study_cli("example_parallel",
-                     ["sem_tpu_torch.examples.boussinesq_parallel",
-                      "--check", "--ranks", "2"])
-    line = [ln for ln in out.splitlines()
-            if ln.startswith("kernel launches by rank: ")]
-    _require(line, "boussinesq_parallel printed no launch counts")
-    ranks = ast.literal_eval(line[0].split(": ", 1)[1])
-    _line("example_parallel", check_ok="CHECK OK" in out, ranks=len(ranks),
-          launches_by_rank=ranks, smi=f"'{smi}'")
-    _require("CHECK OK" in out and len(ranks) == 2
-             and all(n["apply_system_sharded"] > 0
-                     and n["apply_coupled_system_sharded"] > 0
-                     for n in ranks),
-             f"example_parallel: no CHECK OK, or a rank launched no B3/B4: "
-             f"{ranks}")
-    by_path["example_parallel_rank0"] = ranks[0]
+    # the parallel example: JNK P4 8×8 on two ranks, and the reference's
+    # own command, --quick (GS P3 3×3: 10 rows) on eight ranks, whose strips
+    # of one and two rows take their halos from up to three ranks (the
+    # library was built before: the ranks load it)
+    for tag, args, world in (("example_parallel", [], 2),
+                             ("example_parallel_quick_8", ["--quick"], 8)):
+        out = _study_cli(tag, ["sem_tpu_torch.examples.boussinesq_parallel",
+                               "--check", *args, "--ranks", str(world)])
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("kernel launches by rank: ")]
+        _require(line, f"{tag}: boussinesq_parallel printed no launch "
+                       f"counts")
+        ranks = ast.literal_eval(line[0].split(": ", 1)[1])
+        _line(tag, check_ok="CHECK OK" in out, ranks=len(ranks),
+              launches_by_rank=ranks, smi=f"'{smi}'")
+        _require("CHECK OK" in out and len(ranks) == world
+                 and all(n["apply_system_sharded"] > 0
+                         and n["apply_coupled_system_sharded"] > 0
+                         for n in ranks),
+                 f"{tag}: no CHECK OK, or a rank launched no B3/B4: "
+                 f"{ranks}")
+        by_path[tag + "_rank0"] = ranks[0]
     return by_path
 
 
@@ -2606,7 +2662,8 @@ def rank_main(rank: int, world: int, port: int):
     from sem_tpu_torch.ops.sharded import all_reduce
     from sem_tpu_torch.parallel import init_distributed, make_group, use_group
 
-    rank, world, dev = init_distributed(f"127.0.0.1:{port}", world, rank)
+    rank, world, dev = init_distributed(f"127.0.0.1:{port}", world, rank,
+                                        device="cuda")
     group = make_group()
     tag = f"rank{rank}"
     _line(tag, backend=group.backend, world=world, device=dev,

@@ -54,8 +54,6 @@ def main(check=False, quick=False, ranks=2, device="cuda"):
                SEM_TPU_NUM_PROCESSES=str(ranks), PYTHONUNBUFFERED="1",
                PYTHONPATH=os.pathsep.join(
                    [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    if dev.type == "cpu":
-        env["CUDA_VISIBLE_DEVICES"] = ""
     sys.stdout.flush()
     with tempfile.TemporaryDirectory() as tmp:
         result = os.path.join(tmp, "result.json")
@@ -63,7 +61,7 @@ def main(check=False, quick=False, ranks=2, device="cuda"):
                          for r in range(1, ranks)]
         procs = [subprocess.Popen(
             [sys.executable, "-m", "sem_tpu_torch.examples.boussinesq_parallel",
-             "--result", result]
+             "--result", result, "--device", dev.type]
             + ["--check"] * check + ["--quick"] * quick,
             env=dict(env, SEM_TPU_PROCESS_ID=str(r)), stdout=log,
             stderr=subprocess.STDOUT if log else None, text=True)
@@ -99,9 +97,10 @@ def main(check=False, quick=False, ranks=2, device="cuda"):
             return json.load(fh)
 
 
-def rank_main(check, quick, result):
-    """One rank: ``init_distributed`` from the environment, then
-    ``run_parallel``; rank 0 prints, checks and writes ``result``."""
+def rank_main(check, quick, result, device):
+    """One rank: ``init_distributed`` from the environment on ``device``
+    (``"cuda"`` or ``"cpu"``), then ``run_parallel``; rank 0 prints, checks
+    and writes ``result``."""
     import torch
     import torch.distributed as dist
 
@@ -109,7 +108,7 @@ def rank_main(check, quick, result):
     from sem_tpu_torch.ops import LAUNCHES
     from sem_tpu_torch.parallel import init_distributed
 
-    rank, world, dev = init_distributed()
+    rank, world, dev = init_distributed(device=device)
     L_x = L_y = 1.0
     Re, Ra, Pr = 1e3, 1e3, 0.71
     # quick mode: GS coupling at a tiny size (strips of a few rows); the full
@@ -184,6 +183,6 @@ if __name__ == "__main__":
     ap.add_argument("--result", help=argparse.SUPPRESS)   # set in each rank
     a = ap.parse_args()
     if a.result:
-        rank_main(a.check, a.quick, a.result)
+        rank_main(a.check, a.quick, a.result, a.device)
     else:
         main(check=a.check, quick=a.quick, ranks=a.ranks, device=a.device)

@@ -81,7 +81,7 @@ class ConvectionDiffusionSolver:
         self.N = self.grid.N
         group = active_group()
         if group is not None and group.world > 1:
-            row_strips(self.grid.Ngx, group.world, P)   # raises if too thin
+            row_strips(self.grid.Ngx, group.world, P)  # raises if one is empty
 
         dirichlet = np.full(self.N, np.nan)
         for side, val in (("W", T_W), ("E", T_E), ("S", T_S), ("N", T_N)):

@@ -263,7 +263,7 @@ class NavierStokesSolver:
         self.N = self.grid.N
         group = active_group()
         if group is not None and group.world > 1:
-            row_strips(self.grid.Ngx, group.world, P)   # raises if too thin
+            row_strips(self.grid.Ngx, group.world, P)  # raises if one is empty
 
         # Dirichlet values and masks: no normal flow on all walls, tangential
         # values per side, pressure pinned at the centre node

@@ -37,8 +37,11 @@ adds one to :data:`LAUNCHES` under the wrapper's name, and a bf16 launch
 under that name with ``_bf16`` appended (``apply_system_bf16``, ...); the
 row-strip kernels B3/B4 of :mod:`sem_tpu_torch.ops.sharded` count there
 too, each under its own name.  The dispatchers ``apply_system_best`` /
-``apply_coupled_system_best`` send float64 fields to the dense two-matmul
-path of :mod:`sem_tpu_torch.operators`, as the reference does.
+``apply_coupled_system_best`` send float64 fields, and every field at
+orders above :data:`P_MAX`, to the dense two-matmul path of
+:mod:`sem_tpu_torch.operators`, as the reference's dispatcher does off the
+TPU (:func:`_dense_route`); the strip wrappers of B3/B4 do the same above
+:data:`P_MAX`.
 """
 from __future__ import annotations
 
@@ -444,18 +447,29 @@ def apply_coupled_system_kernel(grid: Grid2D, q, ul, vl, jac, mb, coef
 
 
 # ------------------------------- dispatchers ------------------------------ #
+def _dense_route(grid: Grid2D, dtype) -> bool:
+    """Whether an apply takes the dense path of :mod:`sem_tpu_torch.operators`
+    and launches no kernel: float64 fields, or any fields at orders above
+    :data:`P_MAX`, which the kernels do not take (the reference's
+    dispatcher takes the dense path there off the TPU), on whatever device
+    the fields are."""
+    return dtype == torch.float64 or grid.P > P_MAX
+
+
 def apply_system_best(grid: Grid2D, u, v, w, coef) -> torch.Tensor:
-    """float64 → the dense path; float32 and bfloat16 → kernel B1 (plain on
-    the CPU)."""
-    if w.dtype == torch.float64:
+    """float64 fields, and every field at ``P > P_MAX`` → the dense path (B1
+    launches 0 times there); float32 and bfloat16 → kernel B1 (plain on the
+    CPU)."""
+    if _dense_route(grid, w.dtype):
         return ops.apply_system(grid, u, v, w, coef)
     return apply_system_kernel(grid, u, v, w, coef)
 
 
 def apply_coupled_system_best(grid: Grid2D, q, ul, vl, jac, mb, coef
                               ) -> torch.Tensor:
-    """float64 → the dense path; float32 and bfloat16 → kernel B2 (plain on
-    the CPU)."""
-    if q.dtype == torch.float64:
+    """float64 fields, and every field at ``P > P_MAX`` → the dense path (B2
+    launches 0 times there); float32 and bfloat16 → kernel B2 (plain on the
+    CPU)."""
+    if _dense_route(grid, q.dtype):
         return ops.apply_coupled_system(grid, q, ul, vl, jac, mb, coef)
     return apply_coupled_system_kernel(grid, q, ul, vl, jac, mb, coef)

@@ -16,11 +16,15 @@ or bfloat16 fields (one dtype per call; at bf16 the reference kernel's bf16
 function, :mod:`sem_tpu_torch.ops.kernels`) and raises for any other dtype
 on the card; only CPU tensors take the plain version (``*_sharded_plain``).
 Each launch adds one to ``kernels.LAUNCHES`` under the wrapper's own name, a
-bf16 launch under that name with ``_bf16`` appended.
+bf16 launch under that name with ``_bf16`` appended.  At orders above
+``kernels.P_MAX`` both wrappers take the dense path on the strip
+(``operators.apply_*_rows``) and launch nothing, as the dispatchers of
+B1/B2 do.
 
 :class:`RowStrips` holds one grid's layout over the ranks of a group and the
 three collectives of a decomposed chunk: the halo exchange (one all-gather
-of each rank's first and last ``P`` rows per matvec), the all-gather of the
+of each rank's first and last ``P`` rows per matvec, cut across several
+ranks where strips are thinner than ``P``), the all-gather of the
 strips into the full field (for the replicated preconditioners), and the
 all-reduce of Krylov dot products.  :data:`COLLECTIVES` counts them.
 """
@@ -29,10 +33,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sem_tpu_torch import operators as ops
 from sem_tpu_torch.mesh import Grid2D
-from sem_tpu_torch.ops.kernels import (_band_ptrs, _check, _coupled_plain,
-                                       _launch, _system_plain,
-                                       row_window_tiles)
+from sem_tpu_torch.ops.kernels import (P_MAX, _band_ptrs, _check,
+                                       _coupled_plain, _launch,
+                                       _system_plain, row_window_tiles)
 from sem_tpu_torch.parallel.sharding import row_strips
 
 __all__ = ["COLLECTIVES", "RowStrips", "all_reduce", "strip_maps",
@@ -87,18 +92,46 @@ class RowStrips:
         return n - lo if lo <= n < self.rows[1] * self.grid.Ngy else None
 
     def exchange(self, x_loc: torch.Tensor, nf: int = 1) -> torch.Tensor:
-        """The local strips extended by ``P`` halo rows on each side, from
-        the neighbours (zeros at the grid's edges): one all-gather of every
-        rank's first and last ``P`` rows."""
+        """The local strips extended by ``P`` halo rows on each side (zeros
+        beyond the grid's edges): one all-gather of every rank's first and
+        last ``min(P, nrows)`` rows, padded to ``P``.  A halo takes its rows
+        from the nearest ranks outward until it has ``P`` of them, so a
+        strip thinner than ``P`` passes on its neighbours' rows as well."""
         P, Ngy = self.grid.P, self.grid.Ngy
-        rank, world = self.group.rank, self.group.world
         X = x_loc.reshape(nf, self.nrows, Ngy)
-        slabs = self.group.all_gather(torch.stack([X[:, :P], X[:, -P:]]))
+        m = min(P, self.nrows)
+        first, last = X[:, :m], X[:, self.nrows - m:]
+        if m < P:      # each slab's rows at its inner end, zeros beyond
+            first = F.pad(first, (0, 0, 0, P - m))
+            last = F.pad(last, (0, 0, P - m, 0))
+        slabs = self.group.all_gather(torch.stack([first, last]))
         COLLECTIVES["halo_exchange"] += 1
-        zero = torch.zeros_like(slabs[0][0])
-        top = slabs[rank - 1][1] if rank > 0 else zero
-        bot = slabs[rank + 1][0] if rank < world - 1 else zero
+        rank = self.group.rank
+        top = self._halo(slabs, range(rank - 1, -1, -1), 1)
+        bot = self._halo(slabs, range(rank + 1, self.group.world), 0)
         return torch.cat([top, X, bot], dim=1).reshape(-1)
+
+    def _halo(self, slabs, ranks, side: int) -> torch.Tensor:
+        """``P`` rows beside this strip from the gathered ``slabs``, walking
+        ``ranks`` outward: their last rows above it (``side`` 1), their
+        first rows below it (``side`` 0); zeros past the grid's edge."""
+        P = self.grid.P
+        parts, have = [], 0
+        for k in ranks:
+            n = min(P, self.bounds[k][1] - self.bounds[k][0])
+            s = slabs[k][side]
+            parts.append(s[:, P - n:] if side else s[:, :n])
+            have += n
+            if have >= P:
+                break
+        else:
+            zero = slabs[0][0]
+            parts.append(zero.new_zeros(zero.shape[0], P - have,
+                                        zero.shape[2]))
+        if side:       # above: the outermost rows first
+            parts = parts[::-1]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return out[:, -P:] if side else out[:, :P]
 
     def gather(self, x_loc: torch.Tensor, nf: int = 1) -> torch.Tensor:
         """The full ``nf`` fields from every rank's strips: one all-gather."""
@@ -146,7 +179,12 @@ def apply_coupled_system_sharded_plain(grid: Grid2D, rows, q_ext, ul, vl,
 def apply_system_sharded(grid: Grid2D, rows, u, v, w_ext, coef
                          ) -> torch.Tensor:
     """Kernel B3 on CUDA tensors (float32 or bfloat16 fields, one dtype);
-    the plain version for tensors on the CPU."""
+    the plain version for tensors on the CPU.  At orders above ``P_MAX``,
+    which the kernel does not take, the dense path on the strip
+    (:func:`sem_tpu_torch.operators.apply_system_rows`) on any device, with
+    no launch."""
+    if grid.P > P_MAX:
+        return ops.apply_system_rows(grid, rows, u, v, w_ext, coef)
     if w_ext.device.type == "cpu":
         return apply_system_sharded_plain(grid, rows, u, v, w_ext, coef)
     r0, r1 = rows
@@ -166,8 +204,13 @@ def apply_system_sharded(grid: Grid2D, rows, u, v, w_ext, coef
 def apply_coupled_system_sharded(grid: Grid2D, rows, q_ext, ul, vl, jac, mb,
                                  coef) -> torch.Tensor:
     """Kernel B4 on CUDA tensors (float32 or bfloat16 fields, one dtype;
-    bool mask); the plain version for tensors on the CPU.  The pressure-pin
-    row is the caller's."""
+    bool mask); the plain version for tensors on the CPU.  At orders above
+    ``P_MAX``, the dense path on the strip
+    (:func:`sem_tpu_torch.operators.apply_coupled_system_rows`) on any
+    device, with no launch.  The pressure-pin row is the caller's."""
+    if grid.P > P_MAX:
+        return ops.apply_coupled_system_rows(grid, rows, q_ext, ul, vl, jac,
+                                             mb, coef)
     if q_ext.device.type == "cpu":
         return apply_coupled_system_sharded_plain(grid, rows, q_ext, ul, vl,
                                                   jac, mb, coef)

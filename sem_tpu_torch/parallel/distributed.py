@@ -10,7 +10,7 @@ script::
     import torch
     from sem_tpu_torch.coupling import run_parallel
     from sem_tpu_torch.parallel import init_distributed
-    rank, world, device = init_distributed()   # reads the SEM_TPU_* variables
+    rank, world, device = init_distributed()   # SEM_TPU_*; the card
     T, u, v = run_parallel(pts, 1.0, 1.0, ..., device=device)
     torch.distributed.destroy_process_group()  # gloo can abort at exit without
 
@@ -42,22 +42,34 @@ def choose_backend(num_processes: int, cuda_available: bool,
 
 def init_distributed(coordinator_address: str = None,
                      num_processes: int = None, process_id: int = None,
-                     backend: str = None, timeout_s: float = 600.0):
+                     backend: str = None, timeout_s: float = 600.0,
+                     device=None):
     """Initialize the default process group for this process.
 
     Arguments default to the ``SEM_TPU_COORDINATOR`` (``host:port`` or
     ``tcp://host:port``), ``SEM_TPU_NUM_PROCESSES`` and
     ``SEM_TPU_PROCESS_ID`` environment variables.  ``backend=None`` takes
-    :func:`choose_backend`'s rule for the ranks of one host.  Every
-    collective waits at most ``timeout_s``: a rank whose control flow
-    diverged fails the run instead of hanging it.
+    :func:`choose_backend`'s rule for the ranks of one host (gloo on the
+    CPU).  Every collective waits at most ``timeout_s``: a rank whose
+    control flow diverged fails the run instead of hanging it.
 
-    :return: ``(rank, world, device)``; the device is
-        ``cuda:{rank % device_count}`` (made the current CUDA device), or
-        the CPU where torch sees no card
+    :param device: ``None`` or ``"cuda"`` (the card ``cuda:{rank %
+        device_count}``; ``cuda:k`` that card), made the current CUDA
+        device, or ``"cpu"``, the only way to the CPU.  Where torch sees no
+        card, a CUDA device raises ``RuntimeError`` (as the drivers'
+        ``cli_device`` ends them): nothing falls back to the CPU
+    :return: ``(rank, world, device)``
     """
     import torch.distributed as dist
 
+    device = torch.device("cuda" if device is None else device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"init_distributed: device {device} is neither "
+                         f"the card nor the CPU")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_distributed: no CUDA card "
+                           "(torch.cuda.is_available() is false); pass "
+                           "device='cpu' to run the ranks on the CPU")
     addr = coordinator_address or os.environ.get("SEM_TPU_COORDINATOR")
     if num_processes is None:
         num_processes = int(os.environ["SEM_TPU_NUM_PROCESSES"])
@@ -68,12 +80,13 @@ def init_distributed(coordinator_address: str = None,
                          "SEM_TPU_COORDINATOR=host:port)")
     if "://" not in addr:
         addr = "tcp://" + addr
-    cuda = torch.cuda.is_available()
+    cuda = device.type == "cuda"
     ndev = torch.cuda.device_count() if cuda else 0
     if backend is None:
         backend = choose_backend(num_processes, cuda, ndev)
-    device = torch.device(f"cuda:{process_id % ndev}" if cuda else "cpu")
     if cuda:
+        if device.index is None:
+            device = torch.device(f"cuda:{process_id % ndev}")
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=addr,
                             world_size=int(num_processes),

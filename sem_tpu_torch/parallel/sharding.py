@@ -148,13 +148,21 @@ def row_strips(Ngx: int, R: int, P: int) -> list:
     grid over ``R`` ranks (the first ``Ngx % R`` strips take one row more).
 
     The C0 operators couple rows up to ``P`` apart, so a strip's halo is
-    ``P`` rows per side and has to come from its two neighbours alone: a
-    strip thinner than ``P`` rows raises ``ValueError``.
+    ``P`` rows per side.  ``P`` does not bound the split: a strip may be
+    thinner than ``P`` rows, and :meth:`sem_tpu_torch.ops.RowStrips.exchange`
+    then cuts its halos from as many ranks as hold them.
+
+    A strip may not be empty: ``R > Ngx`` raises ``ValueError``.
+    ``sem_tpu``'s mesh replicates a field that does not divide over its
+    devices; the port does not, since a kernel's row window needs at least
+    one row (``r0 < r1``, ``Window::covered`` in ``csrc/tile.cuh``).  Build
+    the group over at most ``Ngx`` ranks (``make_group(ranks=)``).
     """
+    if R > Ngx:
+        raise ValueError(f"row strips of a {Ngx}-row grid over {R} ranks: "
+                         f"{R - Ngx} would be empty, and every rank needs "
+                         f"at least one row")
     base, extra = divmod(int(Ngx), int(R))
-    if base < P:
-        raise ValueError(f"row strips of a {Ngx}-row grid over {R} ranks are "
-                         f"{base} rows thin, under the halo width P={P}")
     bounds, r0 = [], 0
     for r in range(R):
         r1 = r0 + base + (r < extra)

@@ -224,7 +224,6 @@ def mesh_group(device):
     the ``SEM_TPU_*`` variables describe (initialized here on first use,
     over gloo for ``-device cpu``), or ``None`` without the variables, where
     one process runs the single path (a group of one rank)."""
-    import torch
     import torch.distributed as dist
 
     from sem_tpu_torch.parallel import init_distributed, make_group
@@ -232,8 +231,7 @@ def mesh_group(device):
     if not dist.is_initialized():
         if "SEM_TPU_COORDINATOR" not in os.environ:
             return None
-        init_distributed(backend="gloo" if torch.device(device).type == "cpu"
-                         else None)
+        init_distributed(device=device)
     return make_group()
 
 

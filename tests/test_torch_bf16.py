@@ -326,6 +326,62 @@ def test_band_ptrs_hand_b1_and_b3_the_band_blocks(monkeypatch):
                         ("sem_apply_system_strip", "bf16", want)]
 
 
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_orders_above_p_max_take_the_dense_route(monkeypatch, dt):
+    """Above P_MAX (P=65) the dispatchers of B1/B2 and the strip wrappers of
+    B3/B4 take the dense path on whatever device the fields are (traced on
+    ``meta`` tensors, which take the card's path with no data): no launch,
+    no kernel constants read, outputs of the fields' dtype and shape.  At
+    P=64 the same four calls launch their kernels.  The kernels' own raise
+    above 64 stays (test_kernels_refuse_orders_above_p_max)."""
+    launched = []
+
+    def ptrs(grid, device, dtype=torch.float32):
+        launched.append(("band_ptrs", grid.P))
+        return (0,) * 4
+
+    def launch(name, entry, sfx, device, *args):
+        launched.append((name, sfx))
+
+    for mod in (kernels, sharded):
+        monkeypatch.setattr(mod, "_band_ptrs", ptrs)
+        monkeypatch.setattr(mod, "_launch", launch)
+
+    def meta(n, dtype=dt):
+        return torch.empty(n, dtype=dtype, device="meta")
+
+    def four_calls(P):
+        grid = Grid2D(P, 2, 1, 1.0, 1.0)
+        N, Ngy = grid.N, grid.Ngy
+        rows = row_strips(grid.Ngx, 3, P)[1]
+        n = (rows[1] - rows[0]) * Ngy
+        h = 2 * P * Ngy
+        jac = tuple(meta(n) for _ in range(4))
+        return [
+            (kernels.apply_system_best(grid, meta(N), meta(N), meta(N), 3.0),
+             N),
+            (kernels.apply_coupled_system_best(
+                grid, meta(3 * N), meta(N), meta(N),
+                tuple(meta(N) for _ in range(4)), meta(N, torch.bool), 3.0),
+             3 * N),
+            (sharded.apply_system_sharded(grid, rows, meta(n), meta(n),
+                                          meta(n + h), 3.0), n),
+            (sharded.apply_coupled_system_sharded(
+                grid, rows, meta(3 * (n + h)), meta(n), meta(n), jac,
+                meta(n, torch.bool), 3.0), 3 * n)]
+
+    for out, n in four_calls(kernels.P_MAX + 1):
+        assert out.device.type == "meta" and out.dtype == dt
+        assert out.shape == (n,)
+    assert launched == []
+    four_calls(kernels.P_MAX)
+    sfx = "f32" if dt == torch.float32 else "bf16"
+    assert [x for x in launched if x[0] != "band_ptrs"] == [
+        (name, sfx) for name in ("apply_system", "apply_coupled_system",
+                                 "apply_system_sharded",
+                                 "apply_coupled_system_sharded")]
+
+
 # ------------------- band blocks of the tensor-core B2/B4 ------------------ #
 BLOCK_SIZES = [(4, 8), (7, 5), (16, 4), (9, 7)]
 

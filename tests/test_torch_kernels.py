@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from sem_tpu import operators as jops
 from sem_tpu.mesh import Grid2D as JGrid2D
 from sem_tpu.ops import apply_coupled_system_pallas, apply_system_pallas
+from sem_tpu.ops import pallas_kernels as jpk
 from sem_tpu_torch import operators as tops
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import _build, kernels, sharded
@@ -133,6 +134,115 @@ def test_kernels_refuse_orders_above_p_max():
     grid = Grid2D(kernels.P_MAX + 1, 1, 1, 1.0, 1.0)
     with pytest.raises(ValueError, match="P <= 64"):
         kernels._band_ptrs(grid, torch.device("cpu"))
+
+
+# ------------------ the dense route above P_MAX (P=65) -------------------- #
+def _jax_coupled(jg, q, ul, vl, jac, mb, coef):
+    """The NS saddle matvec from ``sem_tpu``'s operator applies (the
+    function of its solver's dense two-matmul ``mv``), f32 at full
+    precision."""
+    N = jg.N
+    du, dv, dp = (jnp.asarray(q[k * N:(k + 1) * N]) for k in range(3))
+    ul, vl = jnp.asarray(ul), jnp.asarray(vl)
+    jxx, jxy, jyx, jyy = map(jnp.asarray, jac)
+
+    def mom(d):
+        return jops.apply_stiffness(jg, d) + coef * (
+            ul * jops.apply_grad_x(jg, d) + vl * jops.apply_grad_y(jg, d))
+
+    dru = mom(du) + jxx * du + jxy * dv + jops.apply_grad_x(jg, dp)
+    drv = mom(dv) + jyx * du + jyy * dv + jops.apply_grad_y(jg, dp)
+    drc = jops.apply_grad_x(jg, du) + jops.apply_grad_y(jg, dv)
+    mb = jnp.asarray(mb)
+    return np.concatenate([np.asarray(jnp.where(mb, a, b)) for a, b in (
+        (du, dru), (dv, drv), (jops.apply_stiffness(jg, dp), drc))])
+
+
+@pytest.mark.parametrize("R", [1, 3, 8])
+def test_dense_route_above_p_max_matches_reference(R):
+    """P=65, 2×1 elements (8,646 nodes), f32: the dispatchers and the R row
+    strips of the strip wrappers (halos cut from the full field) take the
+    dense path on the CPU too, and match sem_tpu's apply_system_best (its
+    dense XLA path off the TPU) and the NS saddle matvec of sem_tpu's
+    operator applies within 2e-6·max|ref| (2.5e-7 measured for B1); the
+    strips give the whole-grid dense rows; no launch counted."""
+    P = kernels.P_MAX + 1
+    cfg = (P, 2, 1, 1.0, 1.0)
+    grid, jg = Grid2D(*cfg), JGrid2D(*cfg)
+    u, v, w, q, jac, mb = (a.astype(np.float32) if a.dtype == np.float64
+                           else a for a in map(np.asarray, _inputs(grid, 65)))
+    ref1 = np.asarray(jpk.apply_system_best(
+        jg, *map(jnp.asarray, (u, v, w)), 3.0))
+    ref2 = _jax_coupled(jg, q, u, v, jac, mb, 3.0)
+    n0 = dict(kernels.LAUNCHES)
+    args = (t32(u), t32(v), tuple(map(t32, jac)), torch.as_tensor(mb))
+    whole1 = kernels.apply_system_best(grid, t32(u), t32(v), t32(w), 3.0)
+    whole2 = kernels.apply_coupled_system_best(grid, t32(q), *args, 3.0)
+    b3, b4 = [], []
+    for rows in row_strips(grid.Ngx, R, P):
+        sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+        u_s, v_s, jac_s, mb_s = (a[sl] if torch.is_tensor(a)
+                                 else tuple(j[sl] for j in a) for a in args)
+        b3.append(sharded.apply_system_sharded(
+            grid, rows, u_s, v_s, sharded.strip_with_halo(grid, rows, t32(w)),
+            3.0))
+        b4.append(sharded.apply_coupled_system_sharded(
+            grid, rows, sharded.strip_with_halo(grid, rows, t32(q), 3), u_s,
+            v_s, jac_s, mb_s, 3.0).reshape(3, -1))
+    got3, got4 = torch.cat(b3), torch.cat(b4, 1).reshape(-1)
+    for got, ref in ((whole1, ref1), (got3, ref1), (whole2, ref2),
+                     (got4, ref2)):
+        np.testing.assert_allclose(got.numpy(), ref,
+                                   atol=2e-6 * np.max(np.abs(ref)))
+    assert torch.equal(got3, whole1) and torch.equal(got4, whole2)
+    assert kernels.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_dense_route_above_p_max(dt):
+    """On the card at P=65 (2×1 elements): the dispatchers and the R = 1, 3
+    strips of the strip wrappers compute through the dense path (cuBLAS),
+    with no launch, against the plain versions: f32 within 2e-5·max|ref|,
+    bf16 (bf16 products and glue, as the reference's dense path at bf16)
+    within 2^-6·max|ref|; the kernels' own wrappers still raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    grid = Grid2D(kernels.P_MAX + 1, 2, 1, 1.0, 1.0)
+    u, v, w, q, jac, mb = _inputs(grid, 66)
+
+    def c(a):
+        return torch.as_tensor(a, device=dev).to(dt)
+
+    u, v, w, q, jac = c(u), c(v), c(w), c(q), tuple(map(c, jac))
+    mb = torch.as_tensor(mb, device=dev)
+    tol = 2e-5 if dt == torch.float32 else 2.0 ** -6
+    n0 = dict(kernels.LAUNCHES)
+    pairs = [(kernels.apply_system_best(grid, u, v, w, 3.0),
+              kernels.apply_system_plain(grid, u, v, w, 3.0)),
+             (kernels.apply_coupled_system_best(grid, q, u, v, jac, mb, 3.0),
+              kernels.apply_coupled_system_plain(grid, q, u, v, jac, mb,
+                                                 3.0))]
+    for R in (1, 3):
+        for rows in row_strips(grid.Ngx, R, grid.P):
+            sl = slice(rows[0] * grid.Ngy, rows[1] * grid.Ngy)
+            a3 = (grid, rows, u[sl], v[sl],
+                  sharded.strip_with_halo(grid, rows, w), 3.0)
+            a4 = (grid, rows, sharded.strip_with_halo(grid, rows, q, 3),
+                  u[sl], v[sl], tuple(j[sl] for j in jac), mb[sl], 3.0)
+            pairs += [(sharded.apply_system_sharded(*a3),
+                       sharded.apply_system_sharded_plain(*a3)),
+                      (sharded.apply_coupled_system_sharded(*a4),
+                       sharded.apply_coupled_system_sharded_plain(*a4))]
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert got.dtype == dt and got.device == ref.device
+        assert float((got.double() - ref.double()).abs().max()) <= \
+            tol * float(ref.double().abs().max())
+    assert kernels.LAUNCHES == n0
+    with pytest.raises(ValueError, match="P <= 64"):
+        kernels.apply_system_kernel(grid, u, v, w, 3.0)
 
 
 @pytest.mark.parametrize("Ngx,R,P", [(33, R, 4) for R in range(1, 9)] + [
@@ -264,14 +374,17 @@ def test_cuda_row_window_r1_equals_whole_grid(P, Ne):
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,Ne,R", [(4, 8, 2), (4, 8, 4), (16, 64, 2),
                                     (3, 5, 3), (7, 5, 2), (16, 32, 4),
-                                    (4, 8, 3)])
+                                    (4, 8, 3), (4, 8, 9), (4, 8, 16),
+                                    (16, 32, 64), (3, 3, 8)])
 def test_cuda_strip_kernels_match_plain(P, Ne, R):
     """Kernels B3/B4 on each of R row strips (halos cut from the full field)
     against their plain versions on the card (f32, atol = 2e-5·max|ref|)
     and, concatenated, against B1/B2 (the same kernel: equal bits).  The
-    cases take compile-time (4, 16) and runtime (3, 7) orders, and strips
+    cases take compile-time (4, 16) and runtime (3, 7) orders, strips
     that start inside an element and inside a 32-row tile (R=3 at P4 8×8:
-    rows 11 and 22; R=4 at P16 32×32: rows 129, 257, 385)."""
+    rows 11 and 22; R=4 at P16 32×32: rows 129, 257, 385), and strips
+    thinner than P that share one tile (R = 9, 16 at P4 8×8; R=64 at P16
+    32×32; R=8 at P3 3×3: one and two rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")

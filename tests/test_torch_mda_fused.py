@@ -386,7 +386,8 @@ import torch
 torch.set_num_threads(1)
 from sem_tpu_torch.coupling import build_coupled
 from sem_tpu_torch.parallel import init_distributed, make_group, use_group
-rank, world, dev = init_distributed("127.0.0.1:{port}", 2, int(sys.argv[1]))
+rank, world, dev = init_distributed("127.0.0.1:{port}", 2, int(sys.argv[1]),
+                                    device="cpu")
 group = make_group()
 quick = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=3, N_ex_cd=6, N_ey_cd=6,
              P_ns=3, N_ex_ns=6, N_ey_ns=6, iprint=False, device="cpu")

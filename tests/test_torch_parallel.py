@@ -176,17 +176,129 @@ class _FakeGroup:
 
 
 def test_thin_strips_raise():
-    """P=4 on the 33-row grid over 9 ranks gives 3-row strips, thinner than
-    the halo: row_strips and building either solver under such a group
-    raise ValueError."""
-    with pytest.raises(ValueError, match="thin"):
-        row_strips(33, 9, 4)
+    """Strips thinner than the halo build: P=4 on the 33-row grid over 9
+    ranks gives 3- and 4-row strips, and both solvers are built under such
+    a group; only an empty strip raises ValueError (more ranks than rows,
+    in row_strips and in either solver's construction)."""
+    assert [r1 - r0 for r0, r1 in row_strips(33, 9, 4)] == [4] * 6 + [3] * 3
     with use_group(_FakeGroup(0, 9)):
-        with pytest.raises(ValueError, match="thin"):
+        TCD(1.0, 1.0, Pe=1.0, P=4, N_ex=8, N_ey=4, device="cpu")
+        TNS(1.0, 1.0, Re=1.0, Gr=0.0, P=4, N_ex=8, N_ey=4, iprint=[],
+            device="cpu")
+    with pytest.raises(ValueError, match="empty"):
+        row_strips(33, 34, 4)
+    with use_group(_FakeGroup(0, 34)):
+        with pytest.raises(ValueError, match="empty"):
             TCD(1.0, 1.0, Pe=1.0, P=4, N_ex=8, N_ey=4, device="cpu")
-        with pytest.raises(ValueError, match="thin"):
+        with pytest.raises(ValueError, match="empty"):
             TNS(1.0, 1.0, Re=1.0, Gr=0.0, P=4, N_ex=8, N_ey=4, iprint=[],
                 device="cpu")
+
+
+# (Ngx, R, P): strips thinner than P, whose halos span two to eight ranks
+THIN = [(10, 8, 3), (13, 8, 3), (33, 9, 4), (33, 16, 4), (65, 64, 8)]
+
+
+def _exchanged(grid, R, x, nf):
+    """Each rank's exchange of its strips of ``x`` over fake groups whose
+    all-gather returns what every rank contributed, and each rank's
+    group."""
+    sent = {}
+
+    def keep(k):
+        def f(t):
+            sent[k] = t.clone()
+            return t
+        return f
+
+    for k in range(R):     # what each rank contributes to the all-gather
+        st = sharded.RowStrips(grid, _FakeGroup(k, R, {k: keep(k)}))
+        st.exchange(st.local(x, nf), nf)
+    out = []
+    for k in range(R):
+        g = _FakeGroup(k, R, {j: (lambda t, j=j: sent[j]) for j in range(R)})
+        st = sharded.RowStrips(grid, g)
+        out.append((st, st.exchange(st.local(x, nf), nf), g))
+    return out
+
+
+@pytest.mark.parametrize("nf", [1, 3])
+@pytest.mark.parametrize("Ngx,R,P", THIN)
+def test_thin_strip_exchange_is_the_cut_halo(Ngx, R, P, nf):
+    """RowStrips.exchange on strips thinner than P: at every rank the local
+    strips with P halo rows per side equal strip_with_halo cut from the
+    full field (zeros beyond the grid), with exactly one all-gather of the
+    unchanged (2, nf, P, Ngy) edge slabs."""
+    grid = Grid2D(P, (Ngx - 1) // P, 2, 1.0, 1.0)
+    assert grid.Ngx == Ngx and min(
+        r1 - r0 for r0, r1 in row_strips(Ngx, R, P)) < P
+    x = torch.tensor(np.random.default_rng(Ngx + R).standard_normal(
+        nf * grid.N))
+    for st, got, g in _exchanged(grid, R, x, nf):
+        assert torch.equal(got, sharded.strip_with_halo(grid, st.rows, x,
+                                                        nf))
+        assert g.calls == [("all_gather", (2, nf, P, grid.Ngy))]
+
+
+@pytest.mark.parametrize("Ngx,R,P", THIN)
+def test_thin_strip_plain_twins_are_the_whole_grid_rows(Ngx, R, P):
+    """B3/B4's plain versions on strips thinner than P, each fed the halo
+    the exchange delivers: concatenated, the rows of B1/B2's plain output.
+    At bf16 (one rounding of an f32 sum) bit for bit; at f32 within
+    2e-7·max|ref|, since the plain versions' einsum products round with
+    the shape they are given (thick strips too: R=2 at P4 8×3 differs by
+    3.0e-8 relative); the card's kernels give the same bits (chip_smoke.py
+    phase 7)."""
+    grid = Grid2D(P, (Ngx - 1) // P, 3, 1.0, 1.3)
+    u, v, w, q, jac, mb = _inputs(grid, Ngx)
+    mb = torch.as_tensor(mb)
+    for dt in (torch.float32, torch.bfloat16):
+        def c(a):
+            return torch.as_tensor(a).to(dt)
+
+        uc, vc, qc, jc = c(u), c(v), c(q), tuple(map(c, jac))
+        strips = {k: _exchanged(grid, R, x, nf) for k, x, nf in (
+            ("w", c(w), 1), ("q", qc, 3))}
+        b3, b4 = [], []
+        for (st, w_ext, _), (_, q_ext, _) in zip(strips["w"], strips["q"]):
+            sl = slice(st.rows[0] * grid.Ngy, st.rows[1] * grid.Ngy)
+            b3.append(sharded.apply_system_sharded_plain(
+                grid, st.rows, uc[sl], vc[sl], w_ext, 3.0))
+            b4.append(sharded.apply_coupled_system_sharded_plain(
+                grid, st.rows, q_ext, uc[sl], vc[sl],
+                tuple(j[sl] for j in jc), mb[sl], 2.5).reshape(3, -1))
+        got3, got4 = torch.cat(b3), torch.cat(b4, 1).reshape(-1)
+        ref3 = kernels.apply_system_plain(grid, uc, vc, c(w), 3.0)
+        ref4 = kernels.apply_coupled_system_plain(grid, qc, uc, vc, jc, mb,
+                                                  2.5)
+        for got, ref in ((got3, ref3), (got4, ref4)):
+            assert got.dtype == dt
+            if dt == torch.bfloat16:
+                assert torch.equal(got, ref)
+            else:
+                assert float((got - ref).abs().max()) <= \
+                    2e-7 * float(ref.abs().max())
+
+
+def test_init_distributed_takes_the_card_or_raises(monkeypatch):
+    """No hidden CPU fallback: where torch sees no card, init_distributed()
+    (the card by default) raises before it touches the process group; the
+    CPU is taken only when asked for (the rank workers pass
+    device="cpu")."""
+    import torch.distributed as dist
+
+    from sem_tpu_torch.parallel import init_distributed
+
+    def never(*a, **k):
+        raise AssertionError("no process group without a device")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", never)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            init_distributed("127.0.0.1:1", 2, 0, device=dev)
+    with pytest.raises(ValueError, match="neither"):
+        init_distributed("127.0.0.1:1", 2, 0, device="meta")
 
 
 def test_one_sharded_matvec_is_one_exchange(monkeypatch):
@@ -295,7 +407,7 @@ from sem_tpu_torch.ops import COLLECTIVES, LAUNCHES, RowStrips, strip_with_halo
 from sem_tpu_torch.parallel import (gather_global, init_distributed,
                                     make_group, use_group)
 
-rank, world, dev = init_distributed()          # the SEM_TPU_* variables
+rank, world, dev = init_distributed(device="cpu")   # the SEM_TPU_* variables
 group = make_group()
 res = {"rank": rank, "world": world, "device": str(dev),
        "backend": group.backend}
@@ -466,9 +578,10 @@ def test_two_process_cd_matches_reference(two_ranks):
     assert all(x["cd_collectives"]["halo_exchange"] > 0 for x in res)
 
 
-def _check_run(res, out, T, u, v, stats, gmres_iters):
-    """The bounds of tests/test_torch_slice.py:71-78."""
-    for r in range(2):
+def _check_run(res, out, T, u, v, stats, gmres_iters, ranks=2):
+    """The bounds of tests/test_torch_slice.py:71-78, in each of the
+    ``ranks`` ranks."""
+    for r in range(ranks):
         Tg, ug, vg = np.load(out / f"run_rank{r}.npy")
         np.testing.assert_allclose(Tg, T, atol=1e-7)
         np.testing.assert_allclose(ug, u, atol=1e-8)

@@ -53,7 +53,7 @@ from sem_tpu_torch.parallel import init_distributed, make_group, use_group
 f64 = torch.float64
 grouped = "SEM_TPU_NUM_PROCESSES" in os.environ
 if grouped:
-    rank, world, _ = init_distributed()
+    rank, world, _ = init_distributed(device="cpu")
     group = make_group()
     tag = f"rank{rank}"
 else:

@@ -69,6 +69,7 @@ from sem_tpu_torch.parallel.distributed import assert_replicated
 from sem_tpu_torch.parallel.sharding import active_group
 from sem_tpu_torch.ptc import SERController
 from sem_tpu_torch.utils.checkpoint import save_checkpoint
+from sem_tpu_torch.utils.profiling import read, span
 
 __all__ = ["BoussinesqMDA", "MDAStats", "CoupledState"]
 
@@ -178,7 +179,7 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
         f_start, f_step, f_precon = fused
     x = torch.zeros_like(b)
     it = 0
-    normb = float(torch.linalg.vector_norm(b))
+    normb = read(torch.linalg.vector_norm(b), "mda.normb")
     if normb <= atol:
         return x, 0, True
     m = restart
@@ -201,10 +202,10 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
                     f"mismatch would silently clamp the padded-buffer "
                     f"updates)")
             vp = out[6:-1]
-            beta = float(out[-1])   # the window's one read
+            beta = read(out[-1], "mda.beta")   # the window's one read
         else:
             r = b - matvec(x)
-            beta = float(torch.linalg.vector_norm(r))
+            beta = read(torch.linalg.vector_norm(r), "mda.beta")
         if not np.isfinite(beta):
             return x, it, False     # inner solve diverged/NaN — fail fast
         if beta <= atol:
@@ -225,12 +226,15 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
         res = beta
         for k in range(m):
             if fused is not None:
-                out = f_step(V, Z, Hd, csd, snd, gd, k, *f_precon(*vp))
+                with span("mda.precon"):
+                    zp = f_precon(*vp)
+                out = f_step(V, Z, Hd, csd, snd, gd, k, *zp)
                 V, Z, Hd, csd, snd, gd = out[:6]
                 vp = out[6:-1]
-                res = float(out[-1])    # the iteration's one read
+                res = read(out[-1], "mda.res")    # the iteration's one read
             else:
-                z = precon(V[k].to(b.dtype))
+                with span("mda.precon"):
+                    z = precon(V[k].to(b.dtype))
                 w = matvec(z)
                 Z[k] = z
                 # CGS2 against the live rows 0..k
@@ -241,7 +245,7 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
                 h2 = Vk @ wl
                 wl = wl - Vk.T @ h2
                 nw = torch.linalg.vector_norm(wl)
-                hfull = torch.cat([h1 + h2, nw[None]]).tolist()
+                hfull = read(torch.cat([h1 + h2, nw[None]]), "mda.hcol")
                 V[k + 1] = wl / hfull[-1] if hfull[-1] > 0.0 else 0.0
                 H[:k + 2, k] = hfull
                 for j in range(k):
@@ -275,7 +279,7 @@ def _fgmres(matvec, precon, b, atol, restart, maxiter, callback=None,
             stalled_in = True
         if fused is not None:
             # the rotated H and g live on the device: one read per window
-            hg = torch.cat([Hd.reshape(-1), gd]).cpu().numpy()
+            hg = np.array(read(torch.cat([Hd.reshape(-1), gd]), "mda.hg"))
             H, g = hg[:-(m + 1)].reshape(m + 1, m), hg[-(m + 1):]
         # Arnoldi breakdown guard: solve only the leading nonsingular block
         diag = np.abs(np.diag(H[:k_used, :k_used]))
@@ -352,19 +356,20 @@ class _CapturedFG:
         self.lin = tuple(torch.empty_like(t) for t in lin)
         self.bind(lin)
         before = dict(COLLECTIVES)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            warm = start(self.x, self.b, *self.lin)
-            step(*warm[:6], self.k, *self.z, *self.lin)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.g_start = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.g_start):
-            self.start_out = start(self.x, self.b, *self.lin)
-        self.g_step = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.g_step):
-            self.step_out = step(*self.start_out[:6], self.k, *self.z,
-                                 *self.lin)
+        with span("mda.capture"):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                warm = start(self.x, self.b, *self.lin)
+                step(*warm[:6], self.k, *self.z, *self.lin)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.g_start = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.g_start):
+                self.start_out = start(self.x, self.b, *self.lin)
+            self.g_step = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.g_step):
+                self.step_out = step(*self.start_out[:6], self.k, *self.z,
+                                     *self.lin)
         if COLLECTIVES != before:
             raise RuntimeError(f"the fused FGMRES programs ran collectives "
                                f"({before} -> {COLLECTIVES}); they must act "
@@ -821,6 +826,10 @@ class BoussinesqMDA:
         zns = torch.zeros(Nns, dtype=f64, device=self.device)
 
         def pc(r):
+            with span("mda.precon"):
+                return pc_apply(r)
+
+        def pc_apply(r):
             rT, ru, rv, rp = self._unpack(r)
             dT = cd_s._update_f64(rT, zcd, mtol_cd, cd_s._sigma)[0]
             if self.precon_type in ("bgs", "bgs2"):
@@ -945,7 +954,8 @@ class BoussinesqMDA:
     def _solve_gs(self, s: CoupledState) -> CoupledState:
         for k in range(1, self.maxiter + 1):
             s = self._gs_sweep(s)
-            norm = float(torch.linalg.vector_norm(self._residuals(s)))
+            norm = read(torch.linalg.vector_norm(self._residuals(s)),
+                        "mda.norm")
             self._print("GS", k, norm)
             self.stats.nonlinear_iters = k
             if norm <= self.atol_nonlin:
@@ -960,24 +970,40 @@ class BoussinesqMDA:
         # iteration-0 subsystem sweep, run loosely (mtol_subsolve); a warm
         # start already at least as good as its target skips it
         if warm:
-            norm0 = float(torch.linalg.vector_norm(self._residuals(s)))
+            norm0 = read(torch.linalg.vector_norm(self._residuals(s)),
+                         "mda.norm")
             if norm0 > self.mtol_subsolve * np.sqrt(self.DOF):
-                s = self._gs_sweep(s, mtol=self.mtol_subsolve)
+                with span("mda.sweep"):
+                    s = self._gs_sweep(s, mtol=self.mtol_subsolve)
         else:
-            s = self._gs_sweep(s, mtol=self.mtol_subsolve)
+            with span("mda.sweep"):
+                s = self._gs_sweep(s, mtol=self.mtol_subsolve)
         F = self._residuals(s)
-        norm = float(torch.linalg.vector_norm(F))
+        norm = read(torch.linalg.vector_norm(F), "mda.norm")
         for k in range(1, self.maxiter + 1):
             self._print("NEWTON", k - 1, norm)
             if norm <= self.atol_nonlin:
                 self.stats.nonlinear_iters = k - 1
                 return s
             self._check_budget(s, k - 1, norm)
+            with span("mda.newton"):
+                s, F, norm = self._newton_step(s, F, norm, krylov)
+            self._maybe_checkpoint(s, k)
+        raise RuntimeError(
+            f"Boussinesq NEWTON: no convergence in {self.maxiter} iterations")
+
+    def _newton_step(self, s: CoupledState, F, norm: float, krylov: bool):
+        """One nonlinear iteration of :meth:`_solve_newton`: linearize at
+        ``s``, solve the coupled tangent system (JNK: flexible GMRES; NJ: one
+        block-Jacobi sweep) and take the step (NJ: Armijo-Goldstein
+        backtracking).  Returns the new ``(s, F, norm)``."""
+        with span("mda.linearize"):
             self._linearize(s)
-            if krylov:
-                atol_k = self.atol_gmres
-                if self.forcing is not None:
-                    atol_k = max(atol_k, self.forcing * norm)
+        if krylov:
+            atol_k = self.atol_gmres
+            if self.forcing is not None:
+                atol_k = max(atol_k, self.forcing * norm)
+            with span("mda.fgmres"):
                 if self.device_krylov:
                     dx, iters, ok, _ = self._fgmres_device(-F, atol=atol_k)
                 else:
@@ -992,28 +1018,25 @@ class BoussinesqMDA:
                         else None,
                         fused=(self._fg_fused(mtol=self.mtol_precon)
                                if self.fused else None))
-                self.stats.gmres_iters += iters
-                if not ok:
-                    raise RuntimeError(
-                        f"Boussinesq JNK GMRES: no convergence in {iters} "
-                        f"iterations")
-            else:
-                dx = self._block_jacobi(-F)
+            self.stats.gmres_iters += iters
+            if not ok:
+                raise RuntimeError(
+                    f"Boussinesq JNK GMRES: no convergence in {iters} "
+                    f"iterations")
+        else:
+            dx = self._block_jacobi(-F)
 
-            # Armijo-Goldstein backtracking (NJ only; JNK takes full steps)
-            alpha = 1.0
-            s_new, F_new, norm_new = self._try_step(s, dx, alpha)
-            if not krylov:
-                ls = 0
-                while (norm_new > (1.0 - self.AGc * alpha) * norm
-                       and ls < self.AGi):
-                    alpha *= self.AGr
-                    s_new, F_new, norm_new = self._try_step(s, dx, alpha)
-                    ls += 1
-            s, F, norm = s_new, F_new, norm_new
-            self._maybe_checkpoint(s, k)
-        raise RuntimeError(
-            f"Boussinesq NEWTON: no convergence in {self.maxiter} iterations")
+        # Armijo-Goldstein backtracking (NJ only; JNK takes full steps)
+        alpha = 1.0
+        s_new, F_new, norm_new = self._try_step(s, dx, alpha)
+        if not krylov:
+            ls = 0
+            while (norm_new > (1.0 - self.AGc * alpha) * norm
+                   and ls < self.AGi):
+                alpha *= self.AGr
+                s_new, F_new, norm_new = self._try_step(s, dx, alpha)
+                ls += 1
+        return s_new, F_new, norm_new
 
     def _solve_ptc(self, s: CoupledState) -> CoupledState:
         """Pseudo-transient continuation: globally convergent steady solve
@@ -1039,7 +1062,7 @@ class BoussinesqMDA:
         ctrl = SERController(self.ptc_dt0, growth=self.ptc_growth,
                              dt_max=self.ptc_dt_max)
         F = self._residuals(s)
-        norm = float(torch.linalg.vector_norm(F))
+        norm = read(torch.linalg.vector_norm(F), "mda.norm")
         linfail_rejects = 0
         collapsed = ("Boussinesq PTC: pseudo-time step collapsed at residual "
                      "{:.3e} (target " + f"{self.atol_nonlin:.3e})")
@@ -1076,10 +1099,10 @@ class BoussinesqMDA:
                     fused=fused, forecast=True)
                 if fused is not None:
                     # the fused window start computes exactly ‖b − A·x‖
-                    lin_res = float(fused[0](dx, -F)[-1])
+                    lin_res = read(fused[0](dx, -F)[-1], "mda.linres")
                 else:
-                    lin_res = float(torch.linalg.vector_norm(
-                        -F - self._apply_linear(dx)))
+                    lin_res = read(torch.linalg.vector_norm(
+                        -F - self._apply_linear(dx)), "mda.linres")
             self.stats.gmres_iters += iters
             lin_failed = lin_res > 10 * atol_k
             s_new, F_new, norm_new = self._try_step(s, dx, 1.0)
@@ -1106,7 +1129,9 @@ class BoussinesqMDA:
             f"Boussinesq PTC: no convergence in {self.maxiter} iterations")
 
     def _try_step(self, s, dx, alpha):
-        dT, du, dv, dp = self._unpack(alpha * dx)
-        s_new = CoupledState(s.T + dT, s.u + du, s.v + dv, s.p + dp)
-        F_new = self._residuals(s_new)
-        return s_new, F_new, float(torch.linalg.vector_norm(F_new))
+        with span("mda.step"):
+            dT, du, dv, dp = self._unpack(alpha * dx)
+            s_new = CoupledState(s.T + dT, s.u + du, s.v + dv, s.p + dp)
+            F_new = self._residuals(s_new)
+            return s_new, F_new, read(torch.linalg.vector_norm(F_new),
+                                      "mda.norm")

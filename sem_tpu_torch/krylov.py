@@ -27,6 +27,7 @@ import scipy.linalg
 import torch
 
 from sem_tpu_torch.ops.sharded import all_reduce
+from sem_tpu_torch.utils.profiling import read
 
 __all__ = ["gmres", "fgmres", "cg", "strip_chunk", "refined_gmres_host",
            "print_hist", "hist_printing_chunk",
@@ -128,13 +129,13 @@ def _arnoldi_column(V, w, k, cchunk, eta, eps_tiny, norm, group=None):
     n0 = norm(w)
     w, h = _mgs_sweep_live(V, w, k, cchunk, group)
     n1 = norm(w)
-    host = torch.cat([torch.stack([n0, n1]), h]).tolist()
+    host = read(torch.cat([torch.stack([n0, n1]), h]), "arnoldi")
     hcol = host[2:]
     hk1 = host[1]
     resweep = 0
     if host[1] < eta * host[0]:     # DGKS: second sweep
         w, h2 = _mgs_sweep_live(V, w, k, cchunk, group)
-        host2 = torch.cat([norm(w)[None], h2]).tolist()
+        host2 = read(torch.cat([norm(w)[None], h2]), "arnoldi2")
         hk1 = host2[0]
         hcol = [a + c for a, c in zip(hcol, host2[1:])]
         resweep = 1
@@ -202,9 +203,10 @@ def _read_first(rnorm, atol):
     tensor ``atol`` (a tolerance decided on the device) rides β's read, so
     it costs no read of its own."""
     if isinstance(atol, torch.Tensor):
-        beta, atol = torch.stack([rnorm, atol.to(rnorm.dtype)]).tolist()
+        beta, atol = read(torch.stack([rnorm, atol.to(rnorm.dtype)]),
+                          "first")
         return beta, atol
-    return float(rnorm), float(atol)
+    return read(rnorm, "first"), float(atol)
 
 
 def _norm(group):
@@ -427,7 +429,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     p = z
     rz = r @ z
     it = 0
-    res = float(torch.linalg.vector_norm(r))
+    res = read(torch.linalg.vector_norm(r), "cg")
     while res > atol and it < maxiter:
         Ap = matvec(p)
         alpha = rz / (p @ Ap)
@@ -438,7 +440,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
-        res = float(torch.linalg.vector_norm(r))
+        res = read(torch.linalg.vector_norm(r), "cg")
     return x, KrylovInfo(converged=res <= atol, iterations=it, resnorm=res,
                          stalled=False)
 
@@ -508,7 +510,7 @@ def refined_gmres_host(cres: Callable, pc_lp: Callable,
     """
     normb = 0.0
     if atol_fn is not None:
-        normb = float(torch.linalg.vector_norm(b))
+        normb = read(torch.linalg.vector_norm(b), "normb")
         atol = atol_fn(normb)
     x = x_best = x0
     rn_best = float("inf")
@@ -528,9 +530,9 @@ def refined_gmres_host(cres: Callable, pc_lp: Callable,
         x = x + xin.to(x.dtype)
         r = cres(x)
         rp = pc_lp(r.to(lp_dtype))
-        rn, rpn = torch.stack([torch.linalg.vector_norm(r),
-                               torch.linalg.vector_norm(rp).to(r.dtype)]
-                              ).tolist()
+        rn, rpn = read(torch.stack([torch.linalg.vector_norm(r),
+                                    torch.linalg.vector_norm(rp).to(r.dtype)]),
+                       "pass")
         if rn0 is None:
             rn0 = rn
         if rn < rn_best:

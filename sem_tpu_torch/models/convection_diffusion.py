@@ -33,6 +33,7 @@ from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_system_best,
                                apply_system_sharded)
 from sem_tpu_torch.parallel.sharding import active_group, row_strips
+from sem_tpu_torch.utils.profiling import read, span
 
 __all__ = ["ConvectionDiffusionSolver"]
 
@@ -76,8 +77,9 @@ class ConvectionDiffusionSolver:
         self._dtype = dtype
         self.device = torch.device(device)
 
-        self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
-        self.points = self.grid.points
+        with span("build.host"):
+            self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
+            self.points = self.grid.points
         self.N = self.grid.N
         group = active_group()
         if group is not None and group.world > 1:
@@ -93,9 +95,10 @@ class ConvectionDiffusionSolver:
                                           device=dev).to(dtype)
         self._md = {dt: ops.grid_const(self.grid, "mass_diag", dt, dev)
                     for dt in (dtype, torch.float32)}
-        self._fdm = FDM2D(self.grid,
-                          dirichlet_x=(T_W is not None, T_E is not None),
-                          dirichlet_y=(T_S is not None, T_N is not None))
+        with span("build.host"):
+            self._fdm = FDM2D(self.grid,
+                              dirichlet_x=(T_W is not None, T_E is not None),
+                              dirichlet_y=(T_S is not None, T_N is not None))
 
         # linearization state: wind of the last _get_residuals, velocity
         # Jacobian diagonals of the last _calc_jacobians
@@ -226,7 +229,7 @@ class ConvectionDiffusionSolver:
         """
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(mtol * np.sqrt(self.N), max(mtol, 50 * eps)
-                   * float(torch.linalg.vector_norm(drhs)))
+                   * read(torch.linalg.vector_norm(drhs), "cd.tol"))
         return gmres(self._mv(self._u, self._v, sigma), drhs, x0=dT0,
                      atol=atol, restart=self._restart, maxiter=self._maxiter,
                      precon=lambda r: self._fdm(r, sigma=sigma),
@@ -270,8 +273,12 @@ class ConvectionDiffusionSolver:
                                 lambda r: fdm(r, sigma=sigma),
                                 restart=restart, maxiter=2 * restart + 5,
                                 return_hist=want_hist)
+        def timed(rp, x0, atol_lp):
+            with span("cd.chunk"):
+                return chunk(rp, x0, atol_lp)
+
         return (self._mv(self._u, self._v, sigma),
-                lambda r32: fdm(r32, sigma=sigma), chunk)
+                lambda r32: fdm(r32, sigma=sigma), timed)
 
     def _update_mixed(self, drhs, dT0, mtol, eps):
         """f64 refinement around bounded f32 FDM-left-preconditioned GMRES

@@ -58,6 +58,7 @@ from sem_tpu_torch.ops import (RowStrips, apply_coupled_system_best,
 from sem_tpu_torch.ops.sharded import strip_maps
 from sem_tpu_torch.parallel.sharding import active_group, row_strips
 from sem_tpu_torch.ptc import SERController
+from sem_tpu_torch.utils.profiling import COUNTERS, read, span
 from sem_tpu_torch.utils.tensors import device_const
 
 __all__ = ["NavierStokesSolver", "solve_ns_continued"]
@@ -160,6 +161,18 @@ def _spectral_schur_data(grid: Grid2D):
                       f"_{grid.L_x}_{grid.L_y}", build)
 
 
+def _counted_chunk(chunk):
+    """``chunk`` timed as span ``ns.chunk``, its iterations counted under
+    ``ns.inner_its``."""
+    def counted(rp, x0, atol_lp):
+        with span("ns.chunk"):
+            out = chunk(rp, x0, atol_lp)
+        COUNTERS["ns.inner_its"] += out[1].iterations
+        return out
+
+    return counted
+
+
 def _edges_get(Rg):
     """Boundary-ring values in W/E/S/N edge-slice order."""
     return torch.cat([Rg[0, :], Rg[-1, :], Rg[1:-1, 0], Rg[1:-1, -1]])
@@ -258,8 +271,9 @@ class NavierStokesSolver:
         self._dtype = dtype
         self.device = torch.device(device)
 
-        self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
-        self.points = self.grid.points
+        with span("build.host"):
+            self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
+            self.points = self.grid.points
         self.N = self.grid.N
         group = active_group()
         if group is not None and group.world > 1:
@@ -286,19 +300,21 @@ class NavierStokesSolver:
         self._dir_v = torch.as_tensor(np.nan_to_num(dir_v), device=dev).to(
             dtype)
 
-        # exact masked-Laplacian inverse for the velocity blocks
-        self._fdm = FDM2D(self.grid, dirichlet_x=(True, True),
-                          dirichlet_y=(True, True))
-        # pure-Neumann pressure Laplacian pseudo-inverse (PCD Schur block)
-        self._fdm_p = (FDM2D(self.grid, dirichlet_x=(False, False),
-                             dirichlet_y=(False, False))
-                       if schur_precon == "pcd" else None)
-        # spectrally-matched Schur block (see _spectral_schur_data)
-        self._spec = self._spec_nz = None
-        if schur_precon == "spectral":
-            self._spec = _spectral_schur_data(self.grid)
-            self._spec_nz = np.abs(self._spec["esum"]) > 1e-14 * float(
-                np.max(np.abs(self._spec["esum"])))
+        with span("build.host"):
+            # exact masked-Laplacian inverse for the velocity blocks
+            self._fdm = FDM2D(self.grid, dirichlet_x=(True, True),
+                              dirichlet_y=(True, True))
+            # pure-Neumann pressure Laplacian pseudo-inverse (PCD Schur
+            # block)
+            self._fdm_p = (FDM2D(self.grid, dirichlet_x=(False, False),
+                                 dirichlet_y=(False, False))
+                           if schur_precon == "pcd" else None)
+            # spectrally-matched Schur block (see _spectral_schur_data)
+            self._spec = self._spec_nz = None
+            if schur_precon == "spectral":
+                self._spec = _spectral_schur_data(self.grid)
+                self._spec_nz = np.abs(self._spec["esum"]) > 1e-14 * float(
+                    np.max(np.abs(self._spec["esum"])))
         # shared zero field of the Uzawa closures: read, never written
         self._zero = torch.zeros(self.N, dtype=dtype, device=dev)
 
@@ -526,7 +542,7 @@ class NavierStokesSolver:
         N = self.N
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(mtol * np.sqrt(3 * N), max(mtol, 50 * eps)
-                   * float(torch.linalg.vector_norm(b)))
+                   * read(torch.linalg.vector_norm(b), "ns.tol"))
         mv, pc = self._coupled_ops(self._u_lin, self._v_lin, self._jac,
                                    self._dtype, velo_inner=self._velo_inner)
         z = torch.zeros(2 * N, dtype=self._dtype, device=self.device)
@@ -569,7 +585,7 @@ class NavierStokesSolver:
 
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(1e-2 * self._mtol * np.sqrt(2 * N),
-                   10 * eps * float(torch.linalg.vector_norm(b)))
+                   10 * eps * read(torch.linalg.vector_norm(b), "ns.tol"))
         return gmres(mv, b, x0=q0, atol=atol, restart=self._restart_velo,
                      maxiter=self._maxiter_velo, precon=pc)
 
@@ -605,7 +621,7 @@ class NavierStokesSolver:
         # f64 noise makes absolute targets below roundoff·‖b‖ unreachable)
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(mtol * np.sqrt(N), max(mtol, 50 * eps)
-                   * float(torch.linalg.vector_norm(b_schur)))
+                   * read(torch.linalg.vector_norm(b_schur), "ns.tol"))
         want_hist = "LGMRES_iter" in self._iprint
         dp, schur_info, *hist = gmres(
             schur_mv, b_schur, x0=dp0, atol=atol, restart=self._restart,
@@ -727,7 +743,7 @@ class NavierStokesSolver:
                                 maxiter=2 * restart + 5,
                                 basis_dtype=basis_dtype,
                                 return_hist=want_hist)
-        return mv64, pc_lp, chunk
+        return mv64, pc_lp, _counted_chunk(chunk)
 
     def _lin32(self):
         """f32 casts of the current linearization, made once per
@@ -752,16 +768,17 @@ class NavierStokesSolver:
         """Convection Jacobian diagonals at (u, v), plus the pseudo-transient
         mass shift σ·diag(M) on the (u,u) and (v,v) blocks (GLL mass is
         diagonal); σ also steers the preconditioners of ``_get_update``."""
-        u, v = self._t(u), self._t(v)
-        self._u_lin, self._v_lin = u, v
-        self._sigma = float(sigma)
-        grid, Re = self.grid, self._Re
-        md = self._g("mass_diag", self._dtype)
-        self._jac = (Re * ops.conv_diag_x(grid, u) + self._sigma * md,
-                     Re * ops.conv_diag_y(grid, u),
-                     Re * ops.conv_diag_x(grid, v),
-                     Re * ops.conv_diag_y(grid, v) + self._sigma * md)
-        self._dinv32 = None   # row-norm scaling follows the linearization
+        with span("ns.linearize"):
+            u, v = self._t(u), self._t(v)
+            self._u_lin, self._v_lin = u, v
+            self._sigma = float(sigma)
+            grid, Re = self.grid, self._Re
+            md = self._g("mass_diag", self._dtype)
+            self._jac = (Re * ops.conv_diag_x(grid, u) + self._sigma * md,
+                         Re * ops.conv_diag_y(grid, u),
+                         Re * ops.conv_diag_x(grid, v),
+                         Re * ops.conv_diag_y(grid, v) + self._sigma * md)
+            self._dinv32 = None   # row-norm scaling follows the linearization
 
     def _get_dresiduals(self, du, dv, dp, dT=None):
         """Tangent residuals with the stored linearization."""
@@ -780,6 +797,11 @@ class NavierStokesSolver:
             raising (preconditioner applications inside flexible outer
             Krylov loops)
         """
+        with span("ns.update"):
+            return self._update(dres_u, dres_v, dres_cont, dp0, mtol,
+                                best_effort)
+
+    def _update(self, dres_u, dres_v, dres_cont, dp0, mtol, best_effort):
         N = self.N
         dp0 = (torch.zeros(N, dtype=self._dtype, device=self.device)
                if dp0 is None else self._t(dp0))
@@ -890,8 +912,8 @@ class NavierStokesSolver:
                 print(f"NavierStokes NEWTON: {self._k}\t{norm}")
             if norm <= atol:
                 if "NEWTON_suc" in self._iprint:
-                    mx = float(torch.max(torch.cat([ru.abs(), rv.abs(),
-                                                    rc.abs()])))
+                    mx = read(torch.max(torch.cat([ru.abs(), rv.abs(),
+                                                   rc.abs()])), "ns.maxnorm")
                     print(f"NavierStokes NEWTON: Converged in {self._k} "
                           f"iterations with max-norm {mx}")
                 break
@@ -903,21 +925,23 @@ class NavierStokesSolver:
                     f"NavierStokes NEWTON: no convergence in {self._k} "
                     f"iterations (residual {norm:.3e}, target {atol:.3e}"
                     + (", stagnated" if stag >= 8 else "") + ")")
-            self._calc_jacobians(u, v)
-            mtol_k = mtol
-            if self._forcing is not None:
-                floor = self._mtol if mtol is None else mtol
-                mtol_k = max(floor, self._forcing * norm / np.sqrt(3 * self.N))
-            du, dv, dp = self._get_update(-ru, -rv, -rc, mtol=mtol_k)
-            u = u + du
-            v = v + dv
-            p = p + dp
+            with span("ns.newton"):
+                self._calc_jacobians(u, v)
+                mtol_k = mtol
+                if self._forcing is not None:
+                    floor = self._mtol if mtol is None else mtol
+                    mtol_k = max(floor,
+                                 self._forcing * norm / np.sqrt(3 * self.N))
+                du, dv, dp = self._get_update(-ru, -rv, -rc, mtol=mtol_k)
+                u = u + du
+                v = v + dv
+                p = p + dp
             self._k += 1
         return u, v, p
 
     def _residual_norm(self, ru, rv, rc) -> float:
         return float(np.sqrt(sum(
-            torch.stack([ru @ ru, rv @ rv, rc @ rc]).tolist())))
+            read(torch.stack([ru @ ru, rv @ rv, rc @ rc]), "ns.norm"))))
 
     @torch.no_grad()
     def solve_ptc(self, T, u0=None, v0=None, p0=None, mtol=None,

@@ -17,6 +17,8 @@ import typing
 import numpy as np
 import torch
 
+from sem_tpu_torch.utils.profiling import span
+
 __all__ = ["device_const", "cli_device", "sync"]
 
 
@@ -26,14 +28,17 @@ def device_const(owner, key, host: typing.Callable[[], np.ndarray],
 
     The cast rounds the float64 host array to nearest, like NumPy's
     ``astype`` in the reference package, so f32 constants are bit-identical
-    to the reference's.
+    to the reference's.  Making a copy is the span ``build.upload``: the
+    host array (computed on first use where it is a cached property) and
+    its copy to the device.
     """
     cache = owner.__dict__.setdefault("_device_consts", {})
     k = (key, dtype, torch.device(device))
     t = cache.get(k)
     if t is None:
-        t = torch.tensor(np.ascontiguousarray(host())).to(device=device,
-                                                              dtype=dtype)
+        with span("build.upload"):
+            t = torch.tensor(np.ascontiguousarray(host())).to(device=device,
+                                                                  dtype=dtype)
         cache[k] = t
     return t
 

@@ -16,6 +16,10 @@ DGKS test asks for a second orthogonalization sweep reads back once more.
 the ranks of ``g``: each norm and each chunk of projection coefficients is
 reduced locally, then all-reduced.  :func:`strip_chunk` builds the solvers'
 decomposed f32 chunks on it.
+
+:class:`CapturedOperator` replays the fixed operator of the solvers' plain
+f32 chunks from one CUDA graph per linearization: the host launches one
+graph per inner iteration instead of the operator's dozens of kernels.
 """
 from __future__ import annotations
 
@@ -26,11 +30,13 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from sem_tpu_torch.ops.kernels import LAUNCHES
 from sem_tpu_torch.ops.sharded import all_reduce
-from sem_tpu_torch.utils.profiling import read
+from sem_tpu_torch.parallel.sharding import active_group
+from sem_tpu_torch.utils.profiling import COUNTERS, read, span
 
 __all__ = ["gmres", "fgmres", "cg", "strip_chunk", "refined_gmres_host",
-           "print_hist", "hist_printing_chunk",
+           "print_hist", "hist_printing_chunk", "CapturedOperator",
            "KrylovInfo", "rownorm_estimate", "rowscale_prep",
            "DGKS_ETA", "DGKS_ETA_F64"]
 
@@ -462,6 +468,86 @@ def strip_chunk(strips, nf: int, mv: Callable, pc: Callable, **gmres_kw):
         return (strips.gather(x, nf), *rest)
 
     return chunk
+
+
+class CapturedOperator:
+    """The fixed linear operator ``fn`` of one linearization's f32 chunks,
+    replayed from one CUDA graph.
+
+    The first call on a CUDA tensor runs ``fn`` eagerly, which warms cuBLAS
+    and uploads the constants that ``fn`` makes on first use, and returns
+    that result; ``fn`` is then captured on a static input and output
+    buffer (span ``krylov.capture``, counter ``krylov.captures``).  Each
+    later call copies its argument into the input buffer, replays the graph
+    and returns the output buffer, which the next call overwrites: a caller
+    consumes the result before it calls again, as :func:`gmres` does.  A
+    replay runs the kernels ``fn`` runs, with the same shapes, so it gives
+    the same bits; it adds the kernel launches its capture recorded to
+    ``ops.kernels.LAUNCHES`` (counter ``krylov.replays``).
+
+    The operator runs eagerly, as it is, on tensors off CUDA, under an
+    active process group (:func:`sem_tpu_torch.parallel.use_group`), and in
+    a call made while the current stream is being captured.
+
+    The graph draws its memory from a pool of its own, which is freed when
+    this object goes (it holds nothing else but ``fn`` and the buffers).
+    The capture runs on the stream :class:`torch.cuda.graph` captures on,
+    without that context's device sync and ``empty_cache``: every capture
+    of the process on that one stream shares one cuBLAS workspace, and the
+    caching allocator keeps the blocks the solve reuses.
+    """
+
+    __slots__ = ("fn", "graph", "pool", "q", "out", "launches")
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graph = None
+
+    def __call__(self, q: torch.Tensor) -> torch.Tensor:
+        if (not q.is_cuda or active_group() is not None
+                or torch.cuda.is_current_stream_capturing()):
+            return self.fn(q)
+        if self.graph is None:
+            return self._capture(q)
+        self.q.copy_(q)
+        self.graph.replay()
+        for name, n in self.launches:
+            LAUNCHES[name] += n
+        COUNTERS["krylov.replays"] += 1
+        return self.out
+
+    def _capture(self, q):
+        # the eager call on the current stream: a new side stream would keep
+        # a cuBLAS workspace of its own (32 MiB on an H100) for as long as
+        # the process lives
+        out = self.fn(q)
+        with torch.cuda.device(q.device), span("krylov.capture"):
+            self.q = torch.empty_like(q)
+            self.pool = torch.cuda.MemPool()
+            graph = torch.cuda.CUDAGraph()
+            before = dict(LAUNCHES)
+            # thread_local: a thread building the next level's solvers
+            # (solve_continued) may allocate while this one captures
+            with torch.cuda.stream(torch.cuda.graph(graph).capture_stream):
+                graph.capture_begin(self.pool.id,
+                                    capture_error_mode="thread_local")
+                try:
+                    self.out = self.fn(self.q)
+                finally:
+                    graph.capture_end()
+            # the capture ran nothing: its launches count at each replay
+            self.launches = tuple((k, v - before[k])
+                                  for k, v in LAUNCHES.items()
+                                  if v != before[k])
+            LAUNCHES.update(before)
+        self.graph = graph
+        COUNTERS["krylov.captures"] += 1
+        return out
+
+    def __del__(self):
+        # the graph and its output before the pool: a pool going frees only
+        # the memory that no graph and no tensor holds any more
+        self.graph = self.out = None
 
 
 def print_hist(label: str, hist, n: int, offset: int = 0):

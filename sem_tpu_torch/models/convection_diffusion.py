@@ -27,7 +27,8 @@ import torch
 from sem_tpu_torch import operators as ops
 from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator
-from sem_tpu_torch.krylov import (gmres, hist_printing_chunk, print_hist,
+from sem_tpu_torch.krylov import (CapturedOperator, gmres,
+                                  hist_printing_chunk, print_hist,
                                   refined_gmres_host, strip_chunk)
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_system_best,
@@ -253,7 +254,10 @@ class ConvectionDiffusionSolver:
         the bounded f32 FDM-left-preconditioned GMRES chunk (kernel B1; on
         this rank's row strip under a group, kernel B3).  Shared by
         :meth:`_update_mixed` and the MDA's fused two-round preconditioner.
-        The chunk returns the f32 history too under ``'LGMRES_iter'``."""
+        The chunk returns the f32 history too under ``'LGMRES_iter'``.  On
+        one card without a group, the chunk's operator is one CUDA graph,
+        captured at the first chunk and replayed by every chunk of these
+        parts (:class:`sem_tpu_torch.krylov.CapturedOperator`)."""
         ul32, vl32 = self._lin32()
         sigma, fdm = self._sigma, self._fdm
         restart = self._restart
@@ -261,10 +265,12 @@ class ConvectionDiffusionSolver:
         group = active_group()
         if group is None or group.world == 1:
             mv32 = self._mv(ul32, vl32, sigma)
+            # one CUDA graph of B1 and the FDM for every chunk at this
+            # linearization
+            op = CapturedOperator(lambda q: fdm(mv32(q), sigma=sigma))
 
             def chunk(rp, x0, atol_lp):
-                return gmres(lambda q: fdm(mv32(q), sigma=sigma), rp, x0=x0,
-                             atol=atol_lp, restart=restart,
+                return gmres(op, rp, x0=x0, atol=atol_lp, restart=restart,
                              maxiter=2 * restart + 5, return_hist=want_hist)
         else:
             # row strips: B3 matvec on this rank's strip, the FDM replicated

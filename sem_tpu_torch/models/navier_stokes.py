@@ -49,9 +49,10 @@ import torch
 from sem_tpu_torch import operators as ops
 from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator, apply_transfer
-from sem_tpu_torch.krylov import (fgmres, gmres, hist_printing_chunk,
-                                  print_hist, refined_gmres_host,
-                                  rownorm_estimate, strip_chunk)
+from sem_tpu_torch.krylov import (CapturedOperator, fgmres, gmres,
+                                  hist_printing_chunk, print_hist,
+                                  refined_gmres_host, rownorm_estimate,
+                                  strip_chunk)
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_coupled_system_best,
                                apply_coupled_system_sharded)
@@ -679,8 +680,11 @@ class NavierStokesSolver:
         bounded f32 chunk (kernel B2; kernel B4 on this rank's row strips
         under a group, for both flavors) of :meth:`_update_coupled_mixed`'s
         docstring, for ``velo_inner = k_inner``.  Shared with the MDA's
-        fused two-round preconditioner.  The chunk returns the f32 history
-        too under ``'LGMRES_iter'``."""
+        fused two-round preconditioner.  On one card without a group, the
+        plain chunks' operator is one CUDA graph, captured at the first
+        chunk and replayed by every chunk of these parts
+        (:class:`sem_tpu_torch.krylov.CapturedOperator`).  The chunk returns
+        the f32 history too under ``'LGMRES_iter'``."""
         N = self.N
         f32 = torch.float32
         ul32, vl32, jac32 = self._lin32()
@@ -722,13 +726,15 @@ class NavierStokesSolver:
                 return (gather(x), *rest)
         elif not decomposed:
             mv32, pc32 = self._coupled_ops(ul32, vl32, jac32, f32)
+            # one CUDA graph of B2, the pin row and the preconditioner for
+            # every chunk at this linearization
+            op = CapturedOperator(lambda q: pc32(mv32(q), sigma))
 
             def pc_lp(r32):
                 return pc32(r32, sigma)
 
             def chunk(rp, x0, atol_lp):
-                return gmres(lambda q: pc32(mv32(q), sigma), rp, x0=x0,
-                             atol=atol_lp, restart=restart,
+                return gmres(op, rp, x0=x0, atol=atol_lp, restart=restart,
                              maxiter=2 * restart + 5,
                              basis_dtype=basis_dtype, return_hist=want_hist)
         else:

@@ -2,12 +2,13 @@
 and the port's own spans and counters on its solve path.
 
 * :func:`span`: a named host-clock interval around a piece of the program
-  (``mda.newton``, ``ns.chunk``, ``build.host``, ...).  Its edges never
-  synchronize the device.  While tracing is off (:func:`enable`,
-  :func:`disable`) it returns one shared no-op object; while it is on, each
-  span closed is logged as a :class:`SpanRecord` whose times are
-  ``time.time_ns()``, the clock of ``torch.profiler``'s events, so the
-  program's spans lie on a device trace's timeline as they are.
+  (``mda.newton``, ``ns.chunk``, ``krylov.capture``, ``build.host``, ...).
+  Its edges never synchronize the device.  While tracing is off
+  (:func:`enable`, :func:`disable`) it returns one shared no-op object;
+  while it is on, each span closed is logged as a :class:`SpanRecord`
+  whose times are ``time.time_ns()``, the clock of ``torch.profiler``'s
+  events, so the program's spans lie on a device trace's timeline as they
+  are.
   :func:`take_spans` returns the log and clears it.  The nesting depth is
   counted per thread (``solve_continued`` builds the next level in a worker
   thread while the main thread solves);
@@ -15,7 +16,8 @@ and the port's own spans and counters on its solve path.
   host (``t.tolist()``), counted under ``reads.<site>`` and, while tracing
   is on, wrapped in the span ``read.<site>``;
 * :data:`COUNTERS`: the program's own counters (``reads.<site>``,
-  ``ns.inner_its``), always on: one integer increment each.
+  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``), always on:
+  one integer increment each.
   :func:`counters` is a flat snapshot of them and of
   ``ops.kernels.LAUNCHES`` and ``ops.sharded.COLLECTIVES``;
 * :class:`PhaseTimer`: named wall-clock spans with a report, in the
@@ -40,7 +42,9 @@ __all__ = ["PhaseTimer", "trace", "span", "read", "enable", "disable",
            "take_spans", "counters", "COUNTERS", "SpanRecord"]
 
 #: the program's own counters since the process started (``reads.<site>``:
-#: host reads by site; ``ns.inner_its``: iterations of the NS f32 chunks)
+#: host reads by site; ``ns.inner_its``: iterations of the NS f32 chunks;
+#: ``krylov.captures``, ``krylov.replays``: CUDA graphs of the plain f32
+#: chunks' operators captured and replayed, ``krylov.CapturedOperator``)
 COUNTERS = defaultdict(int)
 
 _on = False

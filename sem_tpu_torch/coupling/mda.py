@@ -69,7 +69,7 @@ from sem_tpu_torch.parallel.distributed import assert_replicated
 from sem_tpu_torch.parallel.sharding import active_group
 from sem_tpu_torch.ptc import SERController
 from sem_tpu_torch.utils.checkpoint import save_checkpoint
-from sem_tpu_torch.utils.profiling import read, span
+from sem_tpu_torch.utils.profiling import COUNTERS, read, span
 
 __all__ = ["BoussinesqMDA", "MDAStats", "CoupledState"]
 
@@ -90,18 +90,32 @@ _PC_RTOL = 1e-5
 #: above every f32 residual, so that the chunk ends before its first
 #: iteration
 _PC_BIG = 3e38
+#: a PTC step attempt's outcomes (counters ``ptc.<outcome>``) and the
+#: :class:`MDAStats` field each adds to: a step taken, a step taken whose
+#: linear solve ended above 10× its target, a step rejected for a blow-up
+#: of the residual or for a failed linear solve that raised it
+_PTC_STATS = {"accepted": "ptc_accepted", "partial": "ptc_partial",
+              "rejects.blowup": "ptc_rejected",
+              "rejects.linfail": "ptc_rejected"}
 
 
 @dataclasses.dataclass
 class MDAStats:
     """Iteration counters ``[cd_linear_solves, ns_linear_solves,
     nonlinear_iters]`` (the reference study's benchmark), plus the total
-    coupled GMRES iterations."""
+    coupled GMRES iterations and, in PTC, the step attempts by outcome:
+    ``ptc_accepted`` steps taken, ``ptc_rejected`` attempts rejected (blow-up
+    or failed linear solve; ``nonlinear_iters`` counts both kinds), and
+    ``ptc_partial`` accepted steps whose linear solve ended above 10× its
+    target (zero outside PTC)."""
 
     cd_solves: int = 0
     ns_solves: int = 0
     nonlinear_iters: int = 0
     gmres_iters: int = 0
+    ptc_accepted: int = 0
+    ptc_rejected: int = 0
+    ptc_partial: int = 0
 
     def as_list(self):
         return [self.cd_solves, self.ns_solves, self.nonlinear_iters]
@@ -1074,59 +1088,84 @@ class BoussinesqMDA:
                 self.stats.nonlinear_iters = k - 1
                 return s
             self._check_budget(s, k - 1, norm)
-            self._linearize(s, sigma_cd=Pe / dt, sigma_ns=Re / dt)
-            atol_k = max(self.atol_gmres, self.ptc_forcing * norm)
-            # bound the per-step linear effort: a hard tangent system (large
-            # Δt) returns a partial step instead of grinding; the smaller
-            # contraction feeds back through SER, so Δt equilibrates against
-            # what the coupled solver can crack cheaply
-            step_maxiter = min(self.gmres_maxiter, 12 * self.restart)
-            if self.device_krylov and self.DOF <= PTC_DEVICE_MAX_DOF:
-                dx, iters, _, lin_res = self._fgmres_device(
-                    -F, atol=atol_k, maxiter=step_maxiter)
-            else:
-                fused = (self._fg_fused(mtol=self.mtol_precon) if self.fused
-                         else None)
-                dx, iters, _ = _fgmres(
-                    self._apply_linear,
-                    lambda r: self._block_jacobi(r, mtol=self.mtol_precon,
-                                                 best_effort=True),
-                    -F, atol=atol_k, restart=self.restart,
-                    maxiter=step_maxiter,
-                    callback=(lambda it, res: print(
-                        f"   PTC GMRES: {it}\t{res}")) if self.iprint
-                    else None,
-                    fused=fused, forecast=True)
-                if fused is not None:
-                    # the fused window start computes exactly ‖b − A·x‖
-                    lin_res = read(fused[0](dx, -F)[-1], "mda.linres")
-                else:
-                    lin_res = read(torch.linalg.vector_norm(
-                        -F - self._apply_linear(dx)), "mda.linres")
-            self.stats.gmres_iters += iters
-            lin_failed = lin_res > 10 * atol_k
-            s_new, F_new, norm_new = self._try_step(s, dx, 1.0)
-            if not np.isfinite(norm_new) or norm_new > 1e3 * max(norm, 1.0):
-                # genuine blowup: reject, damp hard, re-solve about same x
-                if not ctrl.reject_blowup():
-                    raise RuntimeError(collapsed.format(norm))
-                continue
-            if lin_failed and norm_new > norm and linfail_rejects < 3:
-                # the update did not solve the implicit-Euler system AND it
-                # raised the residual: not a pseudo-time step; re-solve about
-                # the same state at smaller Δt (after 3 rejections in a row
-                # fall back to SER's always-accept, so a rough transient
-                # cannot deadlock)
-                linfail_rejects += 1
-                if not ctrl.reject_linfail():
-                    raise RuntimeError(collapsed.format(norm))
-                continue
-            linfail_rejects = 0
-            ctrl.accept(norm, norm_new, lin_failed)
-            s, F, norm = s_new, F_new, norm_new
+            with span("mda.ptc_step"):
+                with span("mda.linearize"):
+                    self._linearize(s, sigma_cd=Pe / dt, sigma_ns=Re / dt)
+                atol_k = max(self.atol_gmres, self.ptc_forcing * norm)
+                # bound the per-step linear effort: a hard tangent system
+                # (large Δt) returns a partial step instead of grinding; the
+                # smaller contraction feeds back through SER, so Δt
+                # equilibrates against what the coupled solver can crack
+                # cheaply
+                step_maxiter = min(self.gmres_maxiter, 12 * self.restart)
+                with span("mda.fgmres"):
+                    dx, iters, lin_res = self._ptc_linear_solve(
+                        F, atol_k, step_maxiter)
+                self.stats.gmres_iters += iters
+                lin_failed = lin_res > 10 * atol_k
+                s_new, F_new, norm_new = self._try_step(s, dx, 1.0)
+                if (not np.isfinite(norm_new)
+                        or norm_new > 1e3 * max(norm, 1.0)):
+                    # genuine blowup: reject, damp hard, re-solve about
+                    # the same x
+                    self._count_ptc("rejects.blowup")
+                    if not ctrl.reject_blowup():
+                        raise RuntimeError(collapsed.format(norm))
+                    continue
+                if lin_failed and norm_new > norm and linfail_rejects < 3:
+                    # the update did not solve the implicit-Euler system AND
+                    # it raised the residual: not a pseudo-time step;
+                    # re-solve about the same state at smaller Δt (after 3
+                    # rejections in a row fall back to SER's always-accept,
+                    # so a rough transient cannot deadlock)
+                    linfail_rejects += 1
+                    self._count_ptc("rejects.linfail")
+                    if not ctrl.reject_linfail():
+                        raise RuntimeError(collapsed.format(norm))
+                    continue
+                linfail_rejects = 0
+                ctrl.accept(norm, norm_new, lin_failed)
+                self._count_ptc("accepted")
+                if lin_failed:
+                    self._count_ptc("partial")
+                s, F, norm = s_new, F_new, norm_new
             self._maybe_checkpoint(s, k)
         raise RuntimeError(
             f"Boussinesq PTC: no convergence in {self.maxiter} iterations")
+
+    def _ptc_linear_solve(self, F, atol_k: float, maxiter: int):
+        """One PTC step's coupled linear solve of ``J_σ dx = −F``, bounded by
+        ``maxiter``: ``(dx, iterations, ‖−F − J_σ dx‖)``."""
+        if self.device_krylov and self.DOF <= PTC_DEVICE_MAX_DOF:
+            dx, iters, _, lin_res = self._fgmres_device(
+                -F, atol=atol_k, maxiter=maxiter)
+            return dx, iters, lin_res
+        fused = (self._fg_fused(mtol=self.mtol_precon) if self.fused
+                 else None)
+        dx, iters, _ = _fgmres(
+            self._apply_linear,
+            lambda r: self._block_jacobi(r, mtol=self.mtol_precon,
+                                         best_effort=True),
+            -F, atol=atol_k, restart=self.restart, maxiter=maxiter,
+            callback=(lambda it, res: print(
+                f"   PTC GMRES: {it}\t{res}")) if self.iprint else None,
+            fused=fused, forecast=True)
+        if fused is not None:
+            # the fused window start computes exactly ‖b − A·x‖
+            lin_res = read(fused[0](dx, -F)[-1], "mda.linres")
+        else:
+            lin_res = read(torch.linalg.vector_norm(
+                -F - self._apply_linear(dx)), "mda.linres")
+        return dx, iters, lin_res
+
+    def _count_ptc(self, what: str):
+        """Count one PTC step attempt, ``what`` one of :data:`_PTC_STATS`,
+        under ``ptc.<what>`` of the program's counters and in :attr:`stats`
+        (the caller counts a partial step as ``'accepted'``, then as
+        ``'partial'``)."""
+        COUNTERS["ptc." + what] += 1
+        name = _PTC_STATS[what]
+        setattr(self.stats, name, getattr(self.stats, name) + 1)
 
     def _try_step(self, s, dx, alpha):
         with span("mda.step"):

@@ -16,7 +16,8 @@ and the port's own spans and counters on its solve path.
   host (``t.tolist()``), counted under ``reads.<site>`` and, while tracing
   is on, wrapped in the span ``read.<site>``;
 * :data:`COUNTERS`: the program's own counters (``reads.<site>``,
-  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``), always on:
+  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``, ``ptc.*``),
+  always on:
   one integer increment each.
   :func:`counters` is a flat snapshot of them and of
   ``ops.kernels.LAUNCHES`` and ``ops.sharded.COLLECTIVES``;
@@ -44,7 +45,9 @@ __all__ = ["PhaseTimer", "trace", "span", "read", "enable", "disable",
 #: the program's own counters since the process started (``reads.<site>``:
 #: host reads by site; ``ns.inner_its``: iterations of the NS f32 chunks;
 #: ``krylov.captures``, ``krylov.replays``: CUDA graphs of the plain f32
-#: chunks' operators captured and replayed, ``krylov.CapturedOperator``)
+#: chunks' operators captured and replayed, ``krylov.CapturedOperator``;
+#: ``ptc.<outcome>``: the coupled PTC march's step attempts, ``accepted``,
+#: ``partial``, ``rejects.blowup``, ``rejects.linfail``)
 COUNTERS = defaultdict(int)
 
 _on = False

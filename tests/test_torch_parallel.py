@@ -4,6 +4,7 @@ mode on the 8 virtual devices of tests/conftest.py, the strip layout and its
 collectives, the cross-rank agreement check, and the decomposed solves run
 as two processes over gloo against ``sem_tpu`` and against the port's
 single-process solve."""
+import dataclasses
 import json
 import os
 import socket
@@ -372,10 +373,11 @@ def test_cross_rank_check_raises_on_mismatch():
     raises."""
     _, _, mda = build_coupled(1.0, 1.0, mode="JNK", device="cpu", **QUICK)
     z = torch.zeros
-    from sem_tpu_torch.coupling.mda import CoupledState
+    from sem_tpu_torch.coupling.mda import CoupledState, MDAStats
     s = CoupledState(z(mda.N_cd, dtype=torch.float64),
                      *(z(mda.N_ns, dtype=torch.float64) for _ in range(3)))
     mda._assert_ranks_agree(_FakeGroup(0, 2), s)
+    n_stats = len(dataclasses.fields(MDAStats))   # the checksums follow
 
     def bump(i):
         def f(t):
@@ -384,7 +386,8 @@ def test_cross_rank_check_raises_on_mismatch():
             return t
         return f
 
-    for i, name in ((2, "nonlinear_iters"), (4, "sum(T)")):
+    for i, name in ((2, "nonlinear_iters"), (4, "ptc_accepted"),
+                    (n_stats, "sum(T)")):
         with pytest.raises(RuntimeError, match=name.replace("(", r"\(")
                            .replace(")", r"\)")):
             mda._assert_ranks_agree(_FakeGroup(0, 2, {1: bump(i)}), s)

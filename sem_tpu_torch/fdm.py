@@ -106,6 +106,9 @@ class FDM2D:
         bm = np.ones((grid.Ngx, grid.Ngy), dtype=bool)
         bm[np.ix_(ix, iy)] = False
         self._bmask = bm
+        for a in (self._lx, self._Zx, self._ly, self._Zy, self._ginv,
+                  self._bmask):
+            a.setflags(write=False)
 
     def _const(self, name, like):
         return device_const(self, name, lambda: getattr(self, "_" + name),

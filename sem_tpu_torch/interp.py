@@ -8,8 +8,6 @@ matmuls between two grids.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -62,20 +60,25 @@ def eval_field(grid: Grid2D, f: torch.Tensor, points_plot) -> np.ndarray:
     return PointEvaluator(grid, points_plot)(f)
 
 
-@functools.lru_cache(maxsize=None)
+def _transfer_1d(src: Grid2D, dst: Grid2D, axis: str) -> np.ndarray:
+    if axis == "x":
+        return eval_matrix_1d(src.P, src.N_ex, src.dx, dst.x_1d)
+    return eval_matrix_1d(src.P, src.N_ey, src.dy, dst.y_1d)
+
+
 def transfer_matrices(src: Grid2D, dst: Grid2D):
     """1D transfer matrices ``(Ex, Ey)`` re-basing a field from ``src`` onto
     ``dst`` nodes, shapes ``(dst.Ngx, src.Ngx)``, ``(dst.Ngy, src.Ngy)``."""
-    Ex = eval_matrix_1d(src.P, src.N_ex, src.dx, dst.x_1d)
-    Ey = eval_matrix_1d(src.P, src.N_ey, src.dy, dst.y_1d)
-    return Ex, Ey
+    return _transfer_1d(src, dst, "x"), _transfer_1d(src, dst, "y")
 
 
 def apply_transfer(src: Grid2D, dst: Grid2D, f: torch.Tensor) -> torch.Tensor:
-    """Re-basis a flat global vector from ``src`` to ``dst`` (linear map)."""
+    """Re-basis a flat global vector from ``src`` to ``dst`` (linear map);
+    the matrices are device constants of ``src``, so they are built once
+    per pair of grids that :mod:`sem_tpu_torch.build_cache` holds."""
     key = ("transfer", dst._config())
-    Ex = device_const(src, key + ("x",), lambda: transfer_matrices(src, dst)[0],
-                      f.dtype, f.device)
-    Ey = device_const(src, key + ("y",), lambda: transfer_matrices(src, dst)[1],
-                      f.dtype, f.device)
+    Ex, Ey = (device_const(src, key + (axis,),
+                           lambda: _transfer_1d(src, dst, axis), f.dtype,
+                           f.device)
+              for axis in ("x", "y"))
     return (Ex @ f.reshape(src.Ngx, src.Ngy) @ Ey.T).reshape(-1)

@@ -63,6 +63,13 @@ def x2xi(x, dx: float, N_e: int = None):
     return e.astype(int), xi
 
 
+def _frozen(a: np.ndarray) -> np.ndarray:
+    """``a``, read-only: a grid is shared by every solver built on its
+    configuration (``sem_tpu_torch.build_cache``), so a write raises."""
+    a.setflags(write=False)
+    return a
+
+
 class Grid2D:
     """Uniform Cartesian spectral-element grid on [0,L_x]×[0,L_y].
 
@@ -131,8 +138,9 @@ class Grid2D:
         # convection kernels
         self.wq2d = np.multiply.outer(w, w)
 
-        for a in (self.x_1d, self.y_1d, self.gidx, self.m1x, self.m1y,
-                  self.K1x, self.K1y, self.G1x, self.G1y, self.wq2d):
+        for a in (self.x_1d, self.y_1d, self.gidx, self.gidx_flat, self.m1x,
+                  self.m1y, self.K1x, self.K1y, self.G1x, self.G1y,
+                  self.wq2d):
             a.setflags(write=False)
 
     # ------------------------------------------------------------------ #
@@ -167,7 +175,7 @@ class Grid2D:
         Parity with reference SEM.py:82-94 (``global_nodes``).
         """
         X, Y = np.meshgrid(self.x_1d, self.y_1d, indexing="ij")
-        return np.stack([X.reshape(-1), Y.reshape(-1)])
+        return _frozen(np.stack([X.reshape(-1), Y.reshape(-1)]))
 
     @functools.cached_property
     def points_e(self) -> np.ndarray:
@@ -178,25 +186,25 @@ class Grid2D:
         pts = self.points.reshape(2, self.Ngx, self.Ngy)
         out = np.empty((2, self.N_ex, self.N_ey, self.P + 1, self.P + 1))
         flat = pts.reshape(2, -1)[:, self.gidx_flat]
-        return flat.reshape(out.shape)
+        return _frozen(flat.reshape(out.shape))
 
     @functools.cached_property
     def mass_diag(self) -> np.ndarray:
         """Diagonal of the global (lumped) mass matrix, flat ``(N,)``."""
-        return np.multiply.outer(self.m1x, self.m1y).reshape(-1)
+        return _frozen(np.multiply.outer(self.m1x, self.m1y).reshape(-1))
 
     @functools.cached_property
     def KG1x(self) -> np.ndarray:
         """Stacked ``[K1x; G1x]`` (2·Ngx, Ngx): one left matmul computes both
         the stiffness and weak-gradient x-applies (the dense two-matmul
         operator path)."""
-        return np.vstack([self.K1x, self.G1x])
+        return _frozen(np.vstack([self.K1x, self.G1x]))
 
     @functools.cached_property
     def KG1yT(self) -> np.ndarray:
         """Stacked ``[K1yᵀ, G1yᵀ]`` (Ngy, 2·Ngy) — right-side analog of
         :attr:`KG1x`."""
-        return np.hstack([self.K1y.T, self.G1y.T])
+        return _frozen(np.hstack([self.K1y.T, self.G1y.T]))
 
     @functools.cached_property
     def stiff_diag(self) -> np.ndarray:
@@ -204,15 +212,15 @@ class Grid2D:
         ``diag(K) = diag(K1x)⊗m1y + m1x⊗diag(K1y)`` (Jacobi scaling)."""
         kx = np.diag(self.K1x)
         ky = np.diag(self.K1y)
-        return (np.multiply.outer(kx, self.m1y)
-                + np.multiply.outer(self.m1x, ky)).reshape(-1)
+        return _frozen((np.multiply.outer(kx, self.m1y)
+                        + np.multiply.outer(self.m1x, ky)).reshape(-1))
 
     @functools.cached_property
     def multiplicity(self) -> np.ndarray:
         """Number of elements sharing each global node, flat ``(N,)``."""
         out = np.zeros(self.N)
         np.add.at(out, self.gidx_flat, 1.0)
-        return out
+        return _frozen(out)
 
     # ---- boundary masks (index-based; the grid owns exact coordinates) ---- #
     def side_mask(self, side: str) -> np.ndarray:
@@ -240,8 +248,8 @@ class Grid2D:
     @functools.cached_property
     def boundary_mask(self) -> np.ndarray:
         """Mask of all domain-boundary nodes, flat ``(N,)``."""
-        return (self.side_mask("W") | self.side_mask("E")
-                | self.side_mask("S") | self.side_mask("N"))
+        return _frozen(self.side_mask("W") | self.side_mask("E")
+                       | self.side_mask("S") | self.side_mask("N"))
 
     # ------------------------------------------------------------------ #
     def _config(self):

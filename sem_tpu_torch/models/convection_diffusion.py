@@ -24,13 +24,12 @@ import typing
 import numpy as np
 import torch
 
+from sem_tpu_torch import build_cache
 from sem_tpu_torch import operators as ops
-from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator
 from sem_tpu_torch.krylov import (CapturedOperator, gmres,
                                   hist_printing_chunk, print_hist,
                                   refined_gmres_host, strip_chunk)
-from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import (RowStrips, apply_system_best,
                                apply_system_sharded)
 from sem_tpu_torch.parallel.sharding import active_group, row_strips
@@ -79,7 +78,7 @@ class ConvectionDiffusionSolver:
         self.device = torch.device(device)
 
         with span("build.host"):
-            self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
+            self.grid = build_cache.grid(P, N_ex, N_ey, L_x, L_y)
             self.points = self.grid.points
         self.N = self.grid.N
         group = active_group()
@@ -97,9 +96,9 @@ class ConvectionDiffusionSolver:
         self._md = {dt: ops.grid_const(self.grid, "mass_diag", dt, dev)
                     for dt in (dtype, torch.float32)}
         with span("build.host"):
-            self._fdm = FDM2D(self.grid,
-                              dirichlet_x=(T_W is not None, T_E is not None),
-                              dirichlet_y=(T_S is not None, T_N is not None))
+            self._fdm = build_cache.fdm(
+                self.grid, dirichlet_x=(T_W is not None, T_E is not None),
+                dirichlet_y=(T_S is not None, T_N is not None))
 
         # linearization state: wind of the last _get_residuals, velocity
         # Jacobian diagonals of the last _calc_jacobians
@@ -310,8 +309,9 @@ class ConvectionDiffusionSolver:
         return T + self._get_update(-res, mtol=mtol)
 
     def _get_vector(self, f_func: typing.Callable) -> np.ndarray:
-        """Evaluate a callable at the global nodes."""
-        return np.asarray(f_func(self.points[0], self.points[1]), dtype=float)
+        """Evaluate a callable at the global nodes (a copy: never the
+        shared grid's read-only points themselves)."""
+        return np.array(f_func(self.points[0], self.points[1]), dtype=float)
 
     def _get_interpol(self, f, points_plot) -> np.ndarray:
         """Evaluate the SEM interpolant at plot points."""

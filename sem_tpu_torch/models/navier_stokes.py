@@ -46,8 +46,8 @@ import typing
 import numpy as np
 import torch
 
+from sem_tpu_torch import build_cache
 from sem_tpu_torch import operators as ops
-from sem_tpu_torch.fdm import FDM2D
 from sem_tpu_torch.interp import PointEvaluator, apply_transfer
 from sem_tpu_torch.krylov import (CapturedOperator, fgmres, gmres,
                                   hist_printing_chunk, print_hist,
@@ -162,6 +162,32 @@ def _spectral_schur_data(grid: Grid2D):
                       f"_{grid.L_x}_{grid.L_y}", build)
 
 
+class SpectralSchur:
+    """The host constants of one grid's ``'spectral'`` Schur block
+    (:func:`_spectral_schur_data`, and what :meth:`NavierStokesSolver.
+    _spectral` derives from them), read-only, and their device copies
+    (:func:`device_const` caches them here): one per grid configuration,
+    shared by every solver built on it (:mod:`sem_tpu_torch.build_cache`).
+    """
+
+    def __init__(self, grid: Grid2D):
+        data = _spectral_schur_data(grid)
+        esum = data["esum"]
+        nz = np.abs(esum) > 1e-14 * float(np.max(np.abs(esum)))
+        host = dict(Zx=data["Zx"], Zy=data["Zy"], ksum=data["ksum"],
+                    Kbb_inv=data["Kbb_inv"], nz=nz,
+                    esafe=np.where(nz, esum, 1.0),
+                    # K(dp_z) on the boundary ring from two thin matmuls
+                    K1e=grid.K1x[[0, -1], :], K1yTe=grid.K1y[[0, -1], :].T)
+        for a in host.values():
+            a.setflags(write=False)
+        self.host = host
+
+    def const(self, name: str, dtype, device) -> torch.Tensor:
+        return device_const(self, name, lambda: self.host[name], dtype,
+                            device)
+
+
 def _counted_chunk(chunk):
     """``chunk`` timed as span ``ns.chunk``, its iterations counted under
     ``ns.inner_its``."""
@@ -273,7 +299,7 @@ class NavierStokesSolver:
         self.device = torch.device(device)
 
         with span("build.host"):
-            self.grid = Grid2D(P, N_ex, N_ey, L_x, L_y)
+            self.grid = build_cache.grid(P, N_ex, N_ey, L_x, L_y)
             self.points = self.grid.points
         self.N = self.grid.N
         group = active_group()
@@ -303,19 +329,19 @@ class NavierStokesSolver:
 
         with span("build.host"):
             # exact masked-Laplacian inverse for the velocity blocks
-            self._fdm = FDM2D(self.grid, dirichlet_x=(True, True),
-                              dirichlet_y=(True, True))
+            self._fdm = build_cache.fdm(self.grid, dirichlet_x=(True, True),
+                                        dirichlet_y=(True, True))
             # pure-Neumann pressure Laplacian pseudo-inverse (PCD Schur
             # block)
-            self._fdm_p = (FDM2D(self.grid, dirichlet_x=(False, False),
-                                 dirichlet_y=(False, False))
+            self._fdm_p = (build_cache.fdm(self.grid,
+                                           dirichlet_x=(False, False),
+                                           dirichlet_y=(False, False))
                            if schur_precon == "pcd" else None)
             # spectrally-matched Schur block (see _spectral_schur_data)
-            self._spec = self._spec_nz = None
-            if schur_precon == "spectral":
-                self._spec = _spectral_schur_data(self.grid)
-                self._spec_nz = np.abs(self._spec["esum"]) > 1e-14 * float(
-                    np.max(np.abs(self._spec["esum"])))
+            self._spec = (build_cache.get(self.grid._config(),
+                                          "spectral_schur",
+                                          lambda: SpectralSchur(self.grid))
+                          if schur_precon == "spectral" else None)
         # shared zero field of the Uzawa closures: read, never written
         self._zero = torch.zeros(self.N, dtype=dtype, device=dev)
 
@@ -388,26 +414,20 @@ class NavierStokesSolver:
         """Ŝ⁻¹ apply of the 'spectral' Schur block in ``dtype``: tensor solve
         on the interior rows + exact elimination of the boundary stiffness
         rows (see ``sem_tpu.models.navier_stokes._make_spectral``)."""
-        grid, spec = self.grid, self._spec
+        grid = self.grid
         Ngx, Ngy = grid.Ngx, grid.Ngy
 
-        def c(name, host):
-            return device_const(self, ("spec", name), host, dtype,
-                                self.device)
+        def c(name, dtype=dtype):
+            return self._spec.const(name, dtype, self.device)
 
-        Zx = c("Zx", lambda: spec["Zx"])
-        Zy = c("Zy", lambda: spec["Zy"])
+        Zx, Zy = c("Zx"), c("Zy")
         # K(dp_z) on the boundary ring from two thin matmuls (dp_z is zero
         # on every edge, so the cross-direction terms vanish)
-        K1e = c("K1e", lambda: grid.K1x[[0, -1], :])
-        K1yTe = c("K1yTe", lambda: grid.K1y[[0, -1], :].T)
+        K1e, K1yTe = c("K1e"), c("K1yTe")
         m1y = self._g("m1y", dtype)
         m1x_in = self._g("m1x", dtype)[1:-1]
-        nz = device_const(self, ("spec", "nz"), lambda: self._spec_nz,
-                          torch.bool, self.device)
-        esafe = c("esafe", lambda: np.where(self._spec_nz, spec["esum"], 1.0))
-        ksum = c("ksum", lambda: spec["ksum"])
-        Kbb_inv = c("Kbb_inv", lambda: spec["Kbb_inv"])
+        nz = c("nz", torch.bool)
+        esafe, ksum, Kbb_inv = c("esafe"), c("ksum"), c("Kbb_inv")
         mb_or_pin, pin = self._mb_or_pin, self._pin
 
         def apply_(rp, sigma):
@@ -1029,8 +1049,9 @@ class NavierStokesSolver:
             f"(residual {norm:.3e}, target {atol:.3e})")
 
     def _get_vector(self, f_func: typing.Callable) -> np.ndarray:
-        """Evaluate a callable at the global nodes."""
-        return np.asarray(f_func(self.points[0], self.points[1]), dtype=float)
+        """Evaluate a callable at the global nodes (a copy: never the
+        shared grid's read-only points themselves)."""
+        return np.array(f_func(self.points[0], self.points[1]), dtype=float)
 
     def _get_interpol(self, f, points_plot) -> np.ndarray:
         """Evaluate the SEM interpolant at plot points."""

@@ -16,8 +16,8 @@ and the port's own spans and counters on its solve path.
   host (``t.tolist()``), counted under ``reads.<site>`` and, while tracing
   is on, wrapped in the span ``read.<site>``;
 * :data:`COUNTERS`: the program's own counters (``reads.<site>``,
-  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``, ``ptc.*``),
-  always on:
+  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``, ``ptc.*``,
+  ``build.cache_hits``, ``build.cache_misses``), always on:
   one integer increment each.
   :func:`counters` is a flat snapshot of them and of
   ``ops.kernels.LAUNCHES`` and ``ops.sharded.COLLECTIVES``;
@@ -47,7 +47,10 @@ __all__ = ["PhaseTimer", "trace", "span", "read", "enable", "disable",
 #: ``krylov.captures``, ``krylov.replays``: CUDA graphs of the plain f32
 #: chunks' operators captured and replayed, ``krylov.CapturedOperator``;
 #: ``ptc.<outcome>``: the coupled PTC march's step attempts, ``accepted``,
-#: ``partial``, ``rejects.blowup``, ``rejects.linfail``)
+#: ``partial``, ``rejects.blowup``, ``rejects.linfail``;
+#: ``build.cache_hits``, ``build.cache_misses``: grids, FDM solvers and
+#: spectral Schur data a constructor asked ``sem_tpu_torch.build_cache``
+#: for, found there or built)
 COUNTERS = defaultdict(int)
 
 _on = False

@@ -4,7 +4,9 @@ Grids, FDM solvers and the spectral Schur block build their constants on the
 host in float64 NumPy.  Each operator apply needs them as tensors of the field
 dtype on the field's device; :func:`device_const` makes that copy once per
 ``(key, dtype, device)`` and keeps it on the owner, so the copies live exactly
-as long as the grid or solver they belong to.
+as long as the object they belong to; grids, FDM solvers and the spectral
+Schur data are shared by every build on the same grid
+(:mod:`sem_tpu_torch.build_cache`), their host arrays read-only.
 
 :func:`cli_device` is the drivers' (examples, bench, study CLIs) check of the
 device they were asked for, :func:`sync` their wait for it before a host
@@ -31,6 +33,13 @@ def device_const(owner, key, host: typing.Callable[[], np.ndarray],
     to the reference's.  Making a copy is the span ``build.upload``: the
     host array (computed on first use where it is a cached property) and
     its copy to the device.
+
+    The copy is a blocking one (``non_blocking=False``: torch synchronizes
+    the copying stream before ``to`` returns), so a tensor is complete on
+    the device before it is published on the owner, and a later build that
+    shares the owner (:mod:`sem_tpu_torch.build_cache`) may read it from any
+    thread and any stream.  Two threads that miss the same key together
+    both copy; the first copy published is the one every caller gets.
     """
     cache = owner.__dict__.setdefault("_device_consts", {})
     k = (key, dtype, torch.device(device))
@@ -39,7 +48,7 @@ def device_const(owner, key, host: typing.Callable[[], np.ndarray],
         with span("build.upload"):
             t = torch.tensor(np.ascontiguousarray(host())).to(device=device,
                                                                   dtype=dtype)
-        cache[k] = t
+        t = cache.setdefault(k, t)
     return t
 
 

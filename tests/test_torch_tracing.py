@@ -8,7 +8,7 @@ import threading
 import pytest
 import torch
 
-from sem_tpu_torch import NavierStokesSolver
+from sem_tpu_torch import NavierStokesSolver, build_cache
 from sem_tpu_torch.coupling import build_coupled, solve_continued
 from sem_tpu_torch.models import navier_stokes as nsmod
 from sem_tpu_torch.ops import LAUNCHES
@@ -52,8 +52,10 @@ def _diff(after, before):
 
 
 def _run(case, on, monkeypatch):
-    """One solve with tracing on or off, the tensor-to-host conversions and
-    the NS Krylov calls' iterations counted on the side."""
+    """One solve with tracing on or off, built afresh (the registry of
+    ``sem_tpu_torch.build_cache`` emptied first), the tensor-to-host
+    conversions and the NS Krylov calls' iterations counted on the side."""
+    build_cache.clear()
     calls = {"conversions": 0, "ns_krylov_its": 0, "b2_calls": 0}
 
     def counting(name):
@@ -194,7 +196,9 @@ def test_worker_thread_spans_do_not_nest_under_the_solve():
     """A span opened in another thread while the main thread's span is open
     starts at depth 0 of its own thread; ``solve_continued`` at P2→P4, which
     builds the P4 level in a worker thread while the main thread solves P2,
-    logs the worker's ``build.host`` spans at depth 0."""
+    logs the worker's ``build.host`` spans at depth 0 (and, built afresh,
+    its ``build.upload`` spans)."""
+    build_cache.clear()
     profiling.take_spans()
     profiling.enable()
     try:

@@ -1479,11 +1479,11 @@ def krylov_phase(smi, walls, beside):
              f"syncs per replayed step {syncs}")
 
     # ---- (b) the captured start/step against their eager twins ----
-    graphs = mda._fg_graphs
+    lin = mda._fg[2]
     startf, stepf = mda._build_fg_fused()
     x, b = 1e-3 * F, -F
     got = [t.clone() for t in start(x, b)]
-    ref_out = [t.clone() for t in startf(x, b, *graphs.lin)]
+    ref_out = [t.clone() for t in startf(x, b, *lin)]
     diffs = {}
 
     def compare(tag, a, r):
@@ -1498,8 +1498,7 @@ def krylov_phase(smi, walls, beside):
     for k in range(3):
         z = [t.clone() for t in precon_split(*vp)]
         out_g = step(*state_g, k, *z)
-        out_e = stepf(*state_e, torch.tensor(k, device=x.device), *z,
-                      *graphs.lin)
+        out_e = stepf(*state_e, torch.tensor(k, device=x.device), *z, *lin)
         for tag, i in (("V", 0), ("Z", 1), ("H", 2), ("g", 5), ("res", -1)):
             compare(tag, out_g[i], out_e[i])
         vp = [t.clone() for t in out_g[6:-1]]
@@ -1509,7 +1508,7 @@ def krylov_phase(smi, walls, beside):
           max_rel_diff={k: f"{v:.3e}" for k, v in diffs.items()},
           bitwise=worst == 0.0, tol="1e-12")
     _require(worst <= 1e-12, f"graph against eager: {diffs}")
-    del mda, graphs, start, step
+    del mda, lin, start, step
     torch.cuda.empty_cache()
     walls.mark("23a_23b_fused_jnk")
 
@@ -2630,7 +2629,7 @@ def parallel_programs(tag, dev, group, pts, mda9):
         replay = {k: COLLECTIVES[k] - before[k] for k in before}
     r.update(first_solve_s=first, warm_solve_s=warm,
              replayed_step_collectives=replay,
-             captured=mda._fg_graphs is not None)
+             captured=mda._fg[1].graph is not None)
     _line(tag, run="9c_fused", first_solve_s=f"{first:.2f}",
           warm_solve_s=f"{warm:.2f}", replayed_step_collectives=replay,
           captured=r["captured"])

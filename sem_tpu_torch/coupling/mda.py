@@ -63,8 +63,8 @@ from sem_tpu_torch import operators as ops
 from sem_tpu_torch.coupling.components import (ConvectionDiffusionComponent,
                                                NavierStokesComponent)
 from sem_tpu_torch.interp import apply_transfer
-from sem_tpu_torch.krylov import _givens_update_device, fgmres
-from sem_tpu_torch.ops.sharded import COLLECTIVES
+from sem_tpu_torch.krylov import (CapturedProgram, _givens_update_device,
+                                  fgmres)
 from sem_tpu_torch.parallel.distributed import assert_replicated
 from sem_tpu_torch.parallel.sharding import active_group
 from sem_tpu_torch.ptc import SERController
@@ -346,70 +346,6 @@ def _two_rounds(mv64, pc_lp, chunk, b, mtol):
     return x + xin.to(x.dtype), its
 
 
-class _CapturedFG:
-    """The fused host-FGMRES programs as two CUDA graphs, captured once
-    per MDA: ``start`` and ``step`` of :meth:`BoussinesqMDA._build_fg_fused`
-    on static buffers.  :meth:`bind` copies a linearization (σ included, as
-    a 0-d tensor) into the buffers the graphs read; a call copies its
-    arguments in, replays and returns the graph's own output tensors (one
-    set per graph, overwritten by the next replay).  Everything cached on
-    first use (cuBLAS handles, the transfer matrices and grid constants) is
-    made by one eager warm-up on a side stream before the capture; a
-    capture that fails raises, and so does one that ran a collective of
-    :mod:`sem_tpu_torch.ops.sharded` (under a process group the programs
-    act on the replicated coupled vector, and a replayed collective would
-    tie the ranks' replays together)."""
-
-    def __init__(self, start, step, lin, n, sizes):
-        dev = lin[0].device
-        f64 = torch.float64
-        self.x = torch.zeros(n, dtype=f64, device=dev)
-        self.b = torch.zeros(n, dtype=f64, device=dev)
-        self.k = torch.zeros((), dtype=torch.int64, device=dev)
-        self.z = tuple(torch.zeros(s, dtype=f64, device=dev) for s in sizes)
-        self.lin = tuple(torch.empty_like(t) for t in lin)
-        self.bind(lin)
-        before = dict(COLLECTIVES)
-        with span("mda.capture"):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                warm = start(self.x, self.b, *self.lin)
-                step(*warm[:6], self.k, *self.z, *self.lin)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.g_start = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.g_start):
-                self.start_out = start(self.x, self.b, *self.lin)
-            self.g_step = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.g_step):
-                self.step_out = step(*self.start_out[:6], self.k, *self.z,
-                                     *self.lin)
-        if COLLECTIVES != before:
-            raise RuntimeError(f"the fused FGMRES programs ran collectives "
-                               f"({before} -> {COLLECTIVES}); they must act "
-                               f"on the replicated vector alone")
-
-    def bind(self, lin):
-        for dst, src in zip(self.lin, lin):
-            dst.copy_(src)
-
-    def start(self, x, b):
-        self.x.copy_(x)
-        self.b.copy_(b)
-        self.g_start.replay()
-        return self.start_out
-
-    def step(self, V, Z, H, cs, sn, g, k, *z):
-        if V is not self.start_out[0]:
-            raise ValueError("the captured fused step runs on the state of "
-                             "the captured start only")
-        self.k.fill_(k)
-        for dst, src in zip(self.z, z):
-            dst.copy_(src)
-        self.g_step.replay()
-        return self.step_out
-
-
 class BoussinesqMDA:
     """Coupled CD↔NS (Boussinesq) multidisciplinary solver.
 
@@ -514,7 +450,7 @@ class BoussinesqMDA:
             device_krylov = self.DOF <= DEVICE_KRYLOV_MAX_DOF
         self.device_krylov = bool(device_krylov)
         self.fused = True if fused is None else bool(fused)
-        self._fg_graphs = None   # _CapturedFG, made on the first CUDA bind
+        self._fg = None   # (start, step, lin): _fused_programs
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = int(checkpoint_every)
         self.checkpoint_config = checkpoint_config or {}
@@ -651,8 +587,8 @@ class BoussinesqMDA:
         off) and the Givens update with
         :func:`sem_tpu_torch.krylov._givens_update_device`.  Nothing is read
         back inside either, so a CUDA graph captures each
-        (:class:`_CapturedFG`, ``k`` a 0-d tensor); on the CPU they run as
-        they are (``k`` an int)."""
+        (:meth:`_fused_programs`, ``k`` a 0-d tensor); on the CPU they run as
+        they are (``k`` an int, CGS2 on the live rows of ``V``)."""
         cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
         Ncd, Nns = self.N_cd, self.N_ns
         m = self.restart
@@ -696,11 +632,11 @@ class BoussinesqMDA:
             w = mv(zT, zu, zv, zp, *lin)
             Z.index_copy_(0, kt.reshape(1),
                           torch.cat([zT, zu, zv, zp]).to(lp)[None])
-            # CGS2: a Python int k (the eager twin as the host loop calls
-            # it) projects on the live rows 0..k, the un-fused loop's bits;
-            # a tensor k (the captured graph, whose shapes cannot follow k)
-            # on the whole zero-padded V, whose rows past k add nothing
-            Vk = V[:k + 1] if isinstance(k, int) else V
+            # CGS2: off the card on the live rows 0..k, the un-fused loop's
+            # bits; on the card on the whole zero-padded V, whose rows past
+            # k add nothing, so that the captured graph (whose shapes
+            # cannot follow k) and an eager call run the same shapes
+            Vk = V if V.is_cuda else V[:k + 1]
             wl = w.to(lp)
             h1 = Vk @ wl
             wl = wl - Vk.T @ h1
@@ -726,36 +662,54 @@ class BoussinesqMDA:
 
         return start, step
 
+    def _fused_programs(self, lin):
+        """The programs of :meth:`_build_fg_fused` as two
+        :class:`sem_tpu_torch.krylov.CapturedProgram` (prefix ``mda``) on
+        ``lin_s``, a copy of the linearization ``lin`` that
+        :meth:`_fg_fused` binds anew for each linearization: ``(start,
+        step, lin_s)``.  On a CUDA device both are captured here, ``step``
+        on ``start``'s own outputs (V, Z, H, cs, sn and g are never copied)
+        and a 0-d ``k``, into ``start``'s pool."""
+        start, step = (CapturedProgram(f, "mda")
+                       for f in self._build_fg_fused())
+        lin_s = tuple(t.clone() for t in lin)
+        if self.device.type == "cuda":
+            def zeros(*shape, dtype=torch.float64):
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+
+            start.capture(zeros(self.DOF), zeros(self.DOF), *lin_s)
+            if start.graph is not None:
+                step.pool = start.pool
+                step.capture(*start.out[:6], zeros(dtype=torch.int64),
+                             *(zeros(n) for n in
+                               (self.N_cd,) + (self.N_ns,) * 3), *lin_s)
+        return start, step, lin_s
+
     def _fg_fused(self, mtol=None, best_effort=True):
         """Bind the fused host-FGMRES programs to the current linearization:
-        the ``(start, step, precon_split)`` triple of :func:`_fgmres`.  On a
-        CUDA device ``start`` and ``step`` replay the graphs of
-        :class:`_CapturedFG` (captured on the first call, the linearization
-        copied into them on every call); elsewhere they run eagerly.
-        ``precon_split`` is the fused preconditioner (:meth:`_pc_fused`)
-        where it applies and ``best_effort``, else
+        the ``(start, step, precon_split)`` triple of :func:`_fgmres`.
+        ``start`` and ``step`` are :meth:`_fused_programs`, made on the
+        first call; each call copies the linearization into their static
+        copy of it.  ``precon_split`` is the fused preconditioner
+        (:meth:`_pc_fused`) where it applies and ``best_effort``, else
         :meth:`_block_jacobi_split`."""
         cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
         lin = (cd_s._u, cd_s._v, cd_s._jac_diag_u, cd_s._jac_diag_v,
                ns_s._u_lin, ns_s._v_lin, *ns_s._jac,
                torch.tensor(cd_s._sigma, dtype=torch.float64,
                             device=self.device))
-        if self.device.type == "cuda":
-            if self._fg_graphs is None:
-                self._fg_graphs = _CapturedFG(
-                    *self._build_fg_fused(), lin, self.DOF,
-                    (self.N_cd,) + (self.N_ns,) * 3)
-            else:
-                self._fg_graphs.bind(lin)
-            start, step = self._fg_graphs.start, self._fg_graphs.step
+        if self._fg is None:
+            self._fg = self._fused_programs(lin)
         else:
-            startf, stepf = self._build_fg_fused()
+            for dst, src in zip(self._fg[2], lin):
+                dst.copy_(src)
+        startp, stepp, lin_s = self._fg
 
-            def start(x, b):
-                return startf(x, b, *lin)
+        def start(x, b):
+            return startp(x, b, *lin_s)
 
-            def step(*a):
-                return stepf(*a, *lin)
+        def step(*a):
+            return stepp(*a, *lin_s)
 
         precon_split = self._pc_fused(mtol=mtol) if best_effort else None
         if precon_split is None:

@@ -17,9 +17,10 @@ the ranks of ``g``: each norm and each chunk of projection coefficients is
 reduced locally, then all-reduced.  :func:`strip_chunk` builds the solvers'
 decomposed f32 chunks on it.
 
-:class:`CapturedOperator` replays the fixed operator of the solvers' plain
-f32 chunks from one CUDA graph per linearization: the host launches one
-graph per inner iteration instead of the operator's dozens of kernels.
+:class:`CapturedProgram` is the solve path's one rule for CUDA graphs.  On
+it, :class:`CapturedOperator` replays the fixed operator of the solvers'
+plain f32 chunks from one CUDA graph per linearization: the host launches
+one graph per inner iteration instead of the operator's dozens of kernels.
 """
 from __future__ import annotations
 
@@ -31,12 +32,12 @@ import scipy.linalg
 import torch
 
 from sem_tpu_torch.ops.kernels import LAUNCHES
-from sem_tpu_torch.ops.sharded import all_reduce
-from sem_tpu_torch.parallel.sharding import active_group
+from sem_tpu_torch.ops.sharded import COLLECTIVES, all_reduce
 from sem_tpu_torch.utils.profiling import COUNTERS, read, span
 
 __all__ = ["gmres", "fgmres", "cg", "strip_chunk", "refined_gmres_host",
-           "print_hist", "hist_printing_chunk", "CapturedOperator",
+           "print_hist", "hist_printing_chunk", "CapturedProgram",
+           "CapturedOperator",
            "KrylovInfo", "rownorm_estimate", "rowscale_prep",
            "DGKS_ETA", "DGKS_ETA_F64"]
 
@@ -470,84 +471,114 @@ def strip_chunk(strips, nf: int, mv: Callable, pc: Callable, **gmres_kw):
     return chunk
 
 
-class CapturedOperator:
-    """The fixed linear operator ``fn`` of one linearization's f32 chunks,
-    replayed from one CUDA graph.
+class CapturedProgram:
+    """A program ``fn`` of device tensors replayed from one CUDA graph: the
+    one capture rule of the solve path, for the f32 chunks' operators
+    (:class:`CapturedOperator`, prefix ``krylov``) and the MDA's fused
+    host-FGMRES programs (prefix ``mda``).
 
-    The first call on a CUDA tensor runs ``fn`` eagerly, which warms cuBLAS
-    and uploads the constants that ``fn`` makes on first use, and returns
-    that result; ``fn`` is then captured on a static input and output
-    buffer (span ``krylov.capture``, counter ``krylov.captures``).  Each
-    later call copies its argument into the input buffer, replays the graph
-    and returns the output buffer, which the next call overwrites: a caller
-    consumes the result before it calls again, as :func:`gmres` does.  A
+    :meth:`capture` runs ``fn(*static)`` eagerly on the current stream,
+    which warms cuBLAS and makes the constants ``fn`` makes on first use,
+    and returns that result.  On a CUDA device, outside a running capture,
+    it then captures ``fn(*static)`` (span ``<prefix>.capture``, counter
+    ``<prefix>.captures``) on the stream :class:`torch.cuda.graph` captures
+    on, in ``thread_local`` error mode (``solve_continued`` builds the next
+    level's solvers in a worker thread meanwhile) and without that
+    context's device sync, ``gc.collect`` and ``empty_cache``.  No warm-up
+    makes a stream: each new stream keeps a cuBLAS workspace of its own
+    (32 MiB on an H100) for as long as the process lives.  The graph draws
+    its memory from ``pool``, a pool of its own unless the owner hands it
+    another program's before the capture; a pool is freed when the last
+    program holding it goes.  A capture that ran a collective of
+    :mod:`sem_tpu_torch.ops.sharded` raises: the captured programs act on
+    replicated data alone, under a process group too, and a replayed
+    collective would tie the ranks' replays together.
+
+    A call ``self(*args)`` runs ``fn(*args)`` eagerly until a graph is
+    captured, and inside a running capture.  Otherwise it copies each
+    argument into its static input (a number fills a 0-d one; an argument
+    that is its static input is not copied), replays the graph and returns
+    ``out``, the capture's outputs, which the next replay overwrites.  A
     replay runs the kernels ``fn`` runs, with the same shapes, so it gives
-    the same bits; it adds the kernel launches its capture recorded to
-    ``ops.kernels.LAUNCHES`` (counter ``krylov.replays``).
-
-    The operator runs eagerly, as it is, on tensors off CUDA, under an
-    active process group (:func:`sem_tpu_torch.parallel.use_group`), and in
-    a call made while the current stream is being captured.
-
-    The graph draws its memory from a pool of its own, which is freed when
-    this object goes (it holds nothing else but ``fn`` and the buffers).
-    The capture runs on the stream :class:`torch.cuda.graph` captures on,
-    without that context's device sync and ``empty_cache``: every capture
-    of the process on that one stream shares one cuBLAS workspace, and the
-    caching allocator keeps the blocks the solve reuses.
+    the eager bits; it adds the kernel launches its capture recorded to
+    ``ops.kernels.LAUNCHES`` (counter ``<prefix>.replays``).
     """
 
-    __slots__ = ("fn", "graph", "pool", "q", "out", "launches")
+    __slots__ = ("fn", "prefix", "graph", "pool", "static", "out",
+                 "launches")
 
-    def __init__(self, fn: Callable):
-        self.fn = fn
-        self.graph = None
+    def __init__(self, fn: Callable, prefix: str):
+        self.fn, self.prefix = fn, prefix
+        self.graph = self.pool = None
 
-    def __call__(self, q: torch.Tensor) -> torch.Tensor:
-        if (not q.is_cuda or active_group() is not None
-                or torch.cuda.is_current_stream_capturing()):
-            return self.fn(q)
-        if self.graph is None:
-            return self._capture(q)
-        self.q.copy_(q)
-        self.graph.replay()
-        for name, n in self.launches:
-            LAUNCHES[name] += n
-        COUNTERS["krylov.replays"] += 1
-        return self.out
-
-    def _capture(self, q):
-        # the eager call on the current stream: a new side stream would keep
-        # a cuBLAS workspace of its own (32 MiB on an H100) for as long as
-        # the process lives
-        out = self.fn(q)
-        with torch.cuda.device(q.device), span("krylov.capture"):
-            self.q = torch.empty_like(q)
-            self.pool = torch.cuda.MemPool()
+    def capture(self, *static):
+        out = self.fn(*static)
+        dev = static[0].device
+        if dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return out
+        with torch.cuda.device(dev), span(f"{self.prefix}.capture"):
+            if self.pool is None:
+                self.pool = torch.cuda.MemPool()
             graph = torch.cuda.CUDAGraph()
-            before = dict(LAUNCHES)
-            # thread_local: a thread building the next level's solvers
-            # (solve_continued) may allocate while this one captures
+            launches, collectives = dict(LAUNCHES), dict(COLLECTIVES)
             with torch.cuda.stream(torch.cuda.graph(graph).capture_stream):
                 graph.capture_begin(self.pool.id,
                                     capture_error_mode="thread_local")
                 try:
-                    self.out = self.fn(self.q)
+                    captured = self.fn(*static)
                 finally:
                     graph.capture_end()
             # the capture ran nothing: its launches count at each replay
-            self.launches = tuple((k, v - before[k])
+            self.launches = tuple((k, v - launches[k])
                                   for k, v in LAUNCHES.items()
-                                  if v != before[k])
-            LAUNCHES.update(before)
-        self.graph = graph
-        COUNTERS["krylov.captures"] += 1
+                                  if v != launches[k])
+            LAUNCHES.update(launches)
+        if COLLECTIVES != collectives:
+            raise RuntimeError(f"{self.prefix}: a captured program ran "
+                               f"collectives ({collectives} -> "
+                               f"{COLLECTIVES}); it must act on replicated "
+                               f"data alone")
+        self.graph, self.static, self.out = graph, static, captured
+        COUNTERS[f"{self.prefix}.captures"] += 1
         return out
 
+    def __call__(self, *args):
+        if self.graph is None or torch.cuda.is_current_stream_capturing():
+            return self.fn(*args)
+        for s, a in zip(self.static, args):
+            if a is not s:
+                if isinstance(a, torch.Tensor):
+                    s.copy_(a)
+                else:
+                    s.fill_(a)
+        self.graph.replay()
+        for name, n in self.launches:
+            LAUNCHES[name] += n
+        COUNTERS[f"{self.prefix}.replays"] += 1
+        return self.out
+
     def __del__(self):
-        # the graph and its output before the pool: a pool going frees only
+        # the graph and the tensors before the pool: a pool going frees only
         # the memory that no graph and no tensor holds any more
-        self.graph = self.out = None
+        self.graph = self.out = self.static = None
+
+
+class CapturedOperator(CapturedProgram):
+    """The fixed linear operator ``fn`` of one linearization's f32 chunks
+    as a :class:`CapturedProgram` (prefix ``krylov``): its first call on a
+    CUDA tensor is the warm-up, whose result it returns, and captures
+    ``fn`` on a static copy of its argument.  A caller consumes a result
+    before it calls again, as :func:`gmres` does."""
+
+    __slots__ = ()
+
+    def __init__(self, fn: Callable):
+        super().__init__(fn, "krylov")
+
+    def __call__(self, q: torch.Tensor) -> torch.Tensor:
+        if self.graph is None and q.is_cuda:
+            return self.capture(q.clone())
+        return super().__call__(q)
 
 
 def print_hist(label: str, hist, n: int, offset: int = 0):

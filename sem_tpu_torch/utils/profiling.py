@@ -16,7 +16,8 @@ and the port's own spans and counters on its solve path.
   host (``t.tolist()``), counted under ``reads.<site>`` and, while tracing
   is on, wrapped in the span ``read.<site>``;
 * :data:`COUNTERS`: the program's own counters (``reads.<site>``,
-  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``, ``ptc.*``,
+  ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``,
+  ``mda.captures``, ``mda.replays``, ``ptc.*``,
   ``build.cache_hits``, ``build.cache_misses``), always on:
   one integer increment each.
   :func:`counters` is a flat snapshot of them and of
@@ -46,6 +47,8 @@ __all__ = ["PhaseTimer", "trace", "span", "read", "enable", "disable",
 #: host reads by site; ``ns.inner_its``: iterations of the NS f32 chunks;
 #: ``krylov.captures``, ``krylov.replays``: CUDA graphs of the plain f32
 #: chunks' operators captured and replayed, ``krylov.CapturedOperator``;
+#: ``mda.captures``, ``mda.replays``: the same of the MDA's fused
+#: host-FGMRES programs, ``start`` and ``step`` (``krylov.CapturedProgram``);
 #: ``ptc.<outcome>``: the coupled PTC march's step attempts, ``accepted``,
 #: ``partial``, ``rejects.blowup``, ``rejects.linfail``;
 #: ``build.cache_hits``, ``build.cache_misses``: grids, FDM solvers and

@@ -1,10 +1,12 @@
-"""The CUDA graph of the plain f32 chunks' operator
-(``sem_tpu_torch.krylov.CapturedOperator``): off the card, under a process
-group and inside a running capture the operator runs eagerly and the
-solvers' chunks give the bits they gave before, with nothing captured; on
-the card (``cuda``-marked) the graphed chunks and solves give the eager
-bits and launch counts, one capture per linearization, and no device
-memory outlives the solvers."""
+"""The CUDA graphs of the solve path
+(``sem_tpu_torch.krylov.CapturedProgram``): the plain f32 chunks' operator
+(``CapturedOperator``) and the MDA's fused host-FGMRES programs.  Off the
+card (also under a one-rank process group) and inside a running capture
+the operator runs eagerly and the solvers' chunks give the bits they gave
+before, with nothing captured; on the card (``cuda``-marked) the graphed
+chunks and solves give the eager bits and launch counts, one capture per
+linearization and two per MDA, a capture that runs a collective raises,
+and no device memory outlives the solvers or the MDA."""
 import gc
 import types
 
@@ -16,6 +18,7 @@ from sem_tpu_torch import ConvectionDiffusionSolver, NavierStokesSolver
 from sem_tpu_torch import krylov
 from sem_tpu_torch.coupling import build_coupled
 from sem_tpu_torch.ops import LAUNCHES
+from sem_tpu_torch.ops.sharded import all_reduce
 from sem_tpu_torch.parallel.sharding import use_group
 from sem_tpu_torch.utils.profiling import COUNTERS
 
@@ -23,17 +26,21 @@ from tests.torch_parity import one_torch_thread  # noqa: F401
 
 F32 = torch.float32
 GRAPH_COUNTERS = ("krylov.captures", "krylov.replays")
+MDA_COUNTERS = ("mda.captures", "mda.replays")
+# the QUICK configuration of tests/test_torch_mda_fused.py (P3 3×3)
+QUICK = dict(Re=1e3, Ra=1e3, Pr=0.71, P_cd=3, N_ex_cd=3, N_ey_cd=3,
+             P_ns=3, N_ex_ns=3, N_ey_ns=3, iprint=False)
 
 
-def _graph_counts():
-    return tuple(COUNTERS[k] for k in GRAPH_COUNTERS)
+def _graph_counts(names=GRAPH_COUNTERS):
+    return tuple(COUNTERS[k] for k in names)
 
 
 def _condition(name, monkeypatch):
-    """Enter one of the conditions under which the operator runs eagerly
-    (besides the CPU itself): an active process group (a one-rank stub,
-    under which the solvers keep their plain chunks) or a capture running
-    on the current stream."""
+    """Enter one of the conditions the CPU tests hold the operator under:
+    an active process group (a one-rank stub, under which the solvers keep
+    their plain chunks) or a capture running on the current stream (under
+    which the operator runs eagerly on the card too)."""
     if name == "group":
         ctx = use_group(types.SimpleNamespace(world=1))
         ctx.__enter__()
@@ -129,8 +136,8 @@ def _same(a, b):
 
 @pytest.mark.parametrize("condition", ["cpu", "group", "capturing"])
 def test_captured_operator_runs_eagerly(condition, monkeypatch):
-    """Off the card, under a process group and inside a capture the
-    wrapper calls the operator itself at every call and captures
+    """Off the card (alone, under a process group and inside a capture)
+    the wrapper calls the operator itself at every call and captures
     nothing."""
     calls = []
 
@@ -228,8 +235,11 @@ def test_graphed_chunks_match_eager_on_the_card(kind):
 def test_graphed_solves_match_eager_on_the_card(case, monkeypatch):
     """On the card: a lid-cavity Newton solve at P8 4×4 and a fused JNK
     coupled solve at P4 give the same fields, statistics and kernel launch
-    counts with the graphs as with the eager operator, and capture at most
-    once per ``_refinement_parts`` call."""
+    counts with the graphs as with every capture of the port turned off
+    (``CapturedProgram.capture`` only runs its program eagerly): the
+    chunks' operators, captured at most once per ``_refinement_parts``
+    call, and the MDA's fused ``start`` and ``step``, captured once per
+    MDA."""
     dev = _card()
     parts = {"n": 0}
 
@@ -262,24 +272,32 @@ def test_graphed_solves_match_eager_on_the_card(case, monkeypatch):
 
     solve()          # the kernel library, the disk cache, cuBLAS
     runs = {}
+    names = GRAPH_COUNTERS + MDA_COUNTERS
     for graphed in (True, False):
         with monkeypatch.context() as m:
             if not graphed:
-                m.setattr(krylov.CapturedOperator, "__call__",
-                          lambda self, q: self.fn(q))
+                m.setattr(krylov.CapturedProgram, "capture",
+                          lambda self, *static: self.fn(*static))
             parts["n"] = 0
-            l0, c0 = _launches(), _graph_counts()
+            l0, c0 = _launches(), _graph_counts(names)
             fields, stats = solve()
+            counts = dict(zip(names, (b - a for a, b in
+                                      zip(c0, _graph_counts(names)))))
             runs[graphed] = dict(
                 fields=fields, stats=stats, launches=_diff(_launches(), l0),
-                captures=_graph_counts()[0] - c0[0],
-                replays=_graph_counts()[1] - c0[1], parts=parts["n"])
+                counts=counts, parts=parts["n"])
     g, e = runs[True], runs[False]
     assert g["stats"] == e["stats"]
     assert all(torch.equal(a, b) for a, b in zip(g["fields"], e["fields"]))
     assert g["launches"] == e["launches"] != {}
-    assert 0 < g["captures"] <= g["parts"] and g["replays"] > 0
-    assert e["captures"] == e["replays"] == 0
+    gc_ = g["counts"]
+    assert 0 < gc_["krylov.captures"] <= g["parts"]
+    assert gc_["krylov.replays"] > 0
+    if case == "jnk_fused":
+        assert gc_["mda.captures"] == 2 and gc_["mda.replays"] > 0
+    else:
+        assert gc_["mda.captures"] == gc_["mda.replays"] == 0
+    assert set(e["counts"].values()) == {0}
 
 
 @pytest.mark.cuda
@@ -287,8 +305,12 @@ def test_graphed_solves_match_eager_on_the_card(case, monkeypatch):
 def test_nothing_captured_on_the_card(condition):
     """On the card: called inside a running capture the operator is
     captured into that graph as its own kernels (the outer graph's replay
-    gives the eager bits), and under a process group it runs eagerly; in
-    neither case does the wrapper capture a graph of its own."""
+    gives the eager bits); under a process group an operator that runs a
+    collective of ``ops.sharded`` raises at its capture.  The one capture
+    rule has no exception for a group: the chunks decomposed over one never
+    reach the wrapper, and a replayed collective would tie the ranks'
+    replays together.  In neither case does the wrapper keep a graph of its
+    own."""
     dev = _card()
     ns = _ns(dev, P=8)
     mv32, pc32 = ns._coupled_ops(*ns._lin32(), F32)
@@ -311,21 +333,29 @@ def test_nothing_captured_on_the_card(condition):
         torch.cuda.synchronize()
         assert torch.equal(out, want)
     else:
-        with use_group(types.SimpleNamespace(world=1)):
-            for _ in range(3):
-                assert torch.equal(op(q), want)
+        group = types.SimpleNamespace(world=1, all_reduce=lambda t: t)
+
+        def reduced(q):
+            return all_reduce(group, fn(q))
+
+        op = krylov.CapturedOperator(reduced)
+        with use_group(group), pytest.raises(RuntimeError,
+                                             match="collectives"):
+            op(q)
     assert op.graph is None
     assert _graph_counts() == before
 
 
 @pytest.mark.cuda
-def test_graphs_leak_no_device_memory(monkeypatch):
+@pytest.mark.parametrize("case", ["lid", "jnk_fused"])
+def test_graphs_leak_no_device_memory(case, monkeypatch):
     """On the card: the device memory held and the memory the caching
-    allocator reserves after two lid-cavity solvers were built, solved and
-    dropped are what one left behind: the graphs, their pools and buffers
-    go with their solvers' parts.  No capture makes a CUDA stream: each new
+    allocator reserves after two lid-cavity solvers, or two fused JNK
+    solves at QUICK, were built, solved and dropped are what one left
+    behind: the graphs, their pools and buffers go with their solvers'
+    parts and with the MDA.  No capture makes a CUDA stream: each new
     stream would keep a cuBLAS workspace of its own for as long as the
-    process lives, which the memory held after a solver shows only until
+    process lives, which the memory held after a solve shows only until
     the pool of streams has gone round once."""
     dev = _card()
     made = []
@@ -337,14 +367,22 @@ def test_graphs_leak_no_device_memory(monkeypatch):
             return super().__new__(cls, *a, **k)
 
     def one():
-        ns = NavierStokesSolver(1.0, 1.0, Re=100.0, Gr=0.0, P=8, N_ex=4,
-                                N_ey=4, u_N=1.0, mtol=1e-12,
-                                mtol_newton=5e-12, iprint=[], device=dev)
-        T = torch.zeros(ns.N, dtype=torch.float64, device=dev)
-        c0 = _graph_counts()
-        ns._get_solution(T)
-        assert _graph_counts()[0] > c0[0]
-        del ns, T
+        c0 = _graph_counts(GRAPH_COUNTERS + MDA_COUNTERS)
+        if case == "lid":
+            ns = NavierStokesSolver(1.0, 1.0, Re=100.0, Gr=0.0, P=8, N_ex=4,
+                                    N_ey=4, u_N=1.0, mtol=1e-12,
+                                    mtol_newton=5e-12, iprint=[], device=dev)
+            T = torch.zeros(ns.N, dtype=torch.float64, device=dev)
+            ns._get_solution(T)
+            del ns, T
+        else:
+            mda = build_coupled(1.0, 1.0, mode="JNK", fused=True,
+                                device_krylov=False, device=dev, **QUICK)[2]
+            mda.solve()
+            del mda
+        c1 = _graph_counts(GRAPH_COUNTERS + MDA_COUNTERS)
+        assert c1[0] > c0[0]
+        assert c1[2] - c0[2] == (2 if case == "jnk_fused" else 0)
         gc.collect()
         torch.cuda.synchronize()
         return (torch.cuda.memory_allocated(dev),

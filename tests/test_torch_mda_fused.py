@@ -25,6 +25,7 @@ from sem_tpu_torch.coupling import build_coupled
 from sem_tpu_torch.coupling import mda as tmda
 from sem_tpu_torch.coupling.mda import _fgmres
 from sem_tpu_torch.krylov import _givens_update_device
+from sem_tpu_torch.utils.profiling import COUNTERS
 
 from tests.torch_parity import (one_torch_thread, port_unfused,  # noqa
                                 rel_err, t32, t64)
@@ -443,10 +444,12 @@ def test_group_raises_naming_item_6(tmp_path):
 
 @pytest.mark.cuda
 def test_cuda_graphed_step_matches_eager():
-    """On the card, at QUICK: the captured ``start`` and ``step`` against
-    their eager twins on the same inputs (V, Z, H, g and the residual
-    within 1e-12 relative), the graphs captured once per MDA, and a JNK
-    solve with ``fused=True`` giving the CPU's stats."""
+    """On the card, at QUICK: the captured ``start`` and ``step``
+    (``BoussinesqMDA._fused_programs``) against their eager programs on the
+    same inputs (V, Z, H, g and the residual within 1e-12 relative), the
+    two captured once per MDA and bound anew, not captured again, for a
+    new linearization, and a JNK solve with ``fused=True`` giving the
+    CPU's stats."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fused programs are captured as "
                     "CUDA graphs only there")
@@ -454,26 +457,33 @@ def test_cuda_graphed_step_matches_eager():
     _, _, mda = build_coupled(1.0, 1.0, mode="JNK", fused=True, device=dev,
                               **QUICK)
     s = mda.solve()
-    _, _, mda_cpu = build_coupled(1.0, 1.0, mode="JNK", fused=True,
-                                  device="cpu", **QUICK)
-    mda_cpu.solve()
-    assert mda.stats.as_list() == mda_cpu.stats.as_list()
-    graphs = mda._fg_graphs
-    assert graphs is not None
+    captures = COUNTERS["mda.captures"]
     mda._linearize(s)
     F = mda._residuals(s)
+    mda._fg_fused(mtol=1e-4)
+    programs = mda._fg
+    # a new linearization binds the programs anew and captures nothing
+    mda._linearize(s)
     start, step, pcs = mda._fg_fused(mtol=1e-4)
-    assert mda._fg_graphs is graphs
+    assert mda._fg is programs
+    start_p, step_p, lin = programs
+    assert start_p.graph is not None and step_p.graph is not None
+    assert COUNTERS["mda.captures"] - captures == 2
     startf, stepf = mda._build_fg_fused()
     x = 1e-3 * F
     got = [t.clone() for t in start(x, -F)]
-    ref = startf(x, -F, *graphs.lin)
+    ref = startf(x, -F, *lin)
     zs = pcs(*got[6:-1])
     got_s = [t.clone() for t in step(*start(x, -F)[:6], 0, *zs)]
-    # a tensor k: the eager twin of the captured step (the whole padded V)
+    # a tensor k, as the captured step's
     ref_s = stepf(*[t.clone() for t in ref[:6]], torch.tensor(0, device=dev),
-                  *zs, *graphs.lin)
+                  *zs, *lin)
     torch.cuda.synchronize()
     for a, b in zip(got + got_s, list(ref) + list(ref_s)):
         scale = max(float(b.abs().max()), 1e-300)
         assert float((a.double() - b.double()).abs().max()) <= 1e-12 * scale
+    # last, so that the checks above run where this one fails (ROADMAP C13)
+    _, _, mda_cpu = build_coupled(1.0, 1.0, mode="JNK", fused=True,
+                                  device="cpu", **QUICK)
+    mda_cpu.solve()
+    assert mda.stats.as_list() == mda_cpu.stats.as_list()

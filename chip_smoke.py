@@ -234,7 +234,9 @@ the last line):
     device, 23a fused) and the u-anchor 3.6531 ± 1e-3.
 
 ``python3 chip_smoke.py --kernels`` runs phases 1-4, 7, 8 and 8b alone (the
-kernel checks and timings at both dtypes),
+kernel checks and timings at both dtypes), ``python3 chip_smoke.py --gemm``
+phase 25 alone (:func:`gemm_phase`: the GEMM chain of the FDM and Schur
+transforms beside ``torch.matmul``),
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
 ``python3 chip_smoke.py --parallel`` phase 9 (with 9b-9d) alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
@@ -2412,6 +2414,142 @@ def _smi_line():
     return smi
 
 
+def gemm_phase(smi):
+    """Phase 25: the GEMM chain of the FDM and spectral-Schur transforms
+    (``ops/gemm.py``, ``csrc/fdm_gemm.cu``) at the main path's shapes: the
+    NS velocity FDM (P16 64×64, batch 2, 1023²), the CD FDM (P16 32×32,
+    Dirichlet in x, 511×513) and the 'spectral' Schur block (P16 64×64,
+    1025²).  Per transform a line: whether the chain ran in even-odd form,
+    its device µs (``device_us``), the FFMA bound of the products it ran at
+    67 TFLOP/s and the share of it the chain reaches, the same transform on
+    ``torch.matmul`` (the plain path, cuBLAS SGEMM, its TFLOP/s counted on
+    the plain products) as ``library_ms``, and both errors against the f64
+    transform, relative to its maximum (the kernel's must be at most 1.5
+    times cuBLAS's); then one line per product the chain ran, kernel
+    against ``torch.matmul`` on unpadded operands of the same shape.
+    Returns the JSON entries."""
+    import torch
+
+    from sem_tpu_torch import FDM2D, NavierStokesSolver
+    from sem_tpu_torch.mesh import Grid2D
+    from sem_tpu_torch.ops import LAUNCHES, gemm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(25)
+
+    def rel(got, ref):
+        return float((got.double() - ref).abs().max() / ref.abs().max())
+
+    def library(fn):
+        """``fn()`` with the solvers on their ``torch.matmul`` code."""
+        takes = gemm.takes
+        gemm.takes = lambda device, dtype: False
+        try:
+            return fn()
+        finally:
+            gemm.takes = takes
+
+    # (M, N, K, batch) of each product of the plain path (cuBLAS's work)
+    shape_plain = {"fdm_velocity_1023x2": (1023, 1023, 1023, 2),
+                   "fdm_cd_511x513": (511, 513, 512, 1),
+                   "schur_1025": (1025, 1025, 1025, 1)}
+    g64 = Grid2D(16, 64, 64, 1.0, 1.0)
+    g32 = Grid2D(16, 32, 32, 1.0, 1.0)
+    ns = NavierStokesSolver(1.0, 1.0, Re=100.0, Gr=0.0, P=16, N_ex=64,
+                            N_ey=64, u_N=1.0, iprint=[], device=dev)
+    spectral64, spectral32 = ns._spectral(torch.float64), \
+        ns._spectral(torch.float32)
+    fv, fc = FDM2D(g64), FDM2D(g32, (True, True), (False, False))
+    cases = {   # name: (apply, input, owner of the bases, (p, q, batch))
+        "fdm_velocity_1023x2": (fv, (2, g64.N), fv, (1023, 1023, 2)),
+        "fdm_cd_511x513": (fc, (1, g32.N), fc, (511, 513, 1)),
+        "schur_1025": (lambda rp: (spectral64 if rp.dtype == torch.float64
+                                   else spectral32)(rp, 0.0),
+                       (ns.N,), ns._spec, (1023, 1023, 1)),
+    }
+    out = []
+    for name, (apply, shape, owner, (p, q, batch)) in cases.items():
+        x64 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+        x = x64.float()
+        ref = apply(x64)
+        err = rel(apply(x), ref)
+        lib_err = library(lambda: rel(apply(x), ref))
+        n0 = LAUNCHES["fdm_gemm"]
+        apply(x)
+        launches = LAUNCHES["fdm_gemm"] - n0
+        us = device_us(lambda: apply(x))
+        lib_us = library(lambda: device_us(lambda: apply(x)))
+        # the products the chain ran: in even-odd form four per product of
+        # half the depth and width
+        b, = owner._gemm_bases.values()
+        if b.modes_x is None:
+            s, t = b.zx.shape[1], b.zy.shape[1]
+        else:
+            (p, s), (q, t), batch = b.zx.shape[1:], b.zy.shape[1:], 4 * batch
+        prods = [(s, q, p), (s, t, q), (p, t, s), (p, q, t)]
+        flops = sum(gemm.flops(M, N, K, batch) for M, N, K in prods)
+        # the plain path's products, cuBLAS's work
+        lib_flops = 4 * gemm.flops(*shape_plain[name])
+        bound = 1e6 * flops / F32_FLOPS
+        _require(launches == 4 and err <= 1.5 * lib_err,
+                 f"{name}: {launches} launches, error {err:.3e} against "
+                 f"cuBLAS {lib_err:.3e}")
+        _line("gemm_chain", case=name, parity=b.modes_x is not None,
+              device_us=f"{us:.2f}", bound_us=f"{bound:.2f}",
+              share=f"{bound / us:.3f}", tflops=f"{flops / us / 1e6:.2f}",
+              library_ms=f"{lib_us / 1e3:.4f}",
+              library_tflops=f"{lib_flops / lib_us / 1e6:.2f}",
+              err=f"{err:.3e}", library_err=f"{lib_err:.3e}")
+        out.append({"kernel": "fdm_gemm", "case": name, "device_ms":
+                    us / 1e3, "bound_ms": bound / 1e3,
+                    "library_ms": lib_us / 1e3, "err": err,
+                    "library_err": lib_err})
+        for M, N, K in prods:
+            a = torch.randn(batch, K, M, generator=gen).to(dev)
+            b = torch.randn(batch, K, N, generator=gen).to(dev)
+            ap = torch.zeros(batch, K, -(-M // 4) * 4, device=dev)[..., :M]
+            bp = torch.zeros(batch, K, -(-N // 4) * 4, device=dev)[..., :N]
+            ap.copy_(a)
+            bp.copy_(b)
+            c = torch.empty(batch, M, N, device=dev)
+            k_us = device_us(lambda: gemm.gemm(ap, bp, c))
+            at = a.transpose(1, 2).contiguous()
+            l_us = device_us(lambda: torch.matmul(at, b))
+            sched = gemm.schedule(M, N, K, batch, torch.cuda.
+                                  get_device_properties(dev).
+                                  multi_processor_count)
+            f = gemm.flops(M, N, K, batch)
+            _line("gemm_product", case=name, M=M, N=N, K=K, batch=batch,
+                  blocks=sched.blocks, units=len(sched.units),
+                  split=sched.split, device_us=f"{k_us:.2f}",
+                  tflops=f"{f / k_us / 1e6:.2f}",
+                  library_us=f"{l_us:.2f}",
+                  library_tflops=f"{f / l_us / 1e6:.2f}")
+    return out
+
+
+def gemm_main():
+    """``--gemm``: the card's line, the build, then phase 25 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import sem_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from sem_tpu_torch.ops import _build
+
+    smi = _smi_line()
+    t0 = time.perf_counter()
+    _build.library()
+    _line("build", seconds=f"{time.perf_counter() - t0:.2f}",
+          nvcc_seconds=f"{_build.last_build_seconds:.2f}")
+    walls = Walls()
+    entries = gemm_phase(smi)
+    walls.mark("25_gemm_chain")
+    walls.show()
+    print(json.dumps({"kernels": entries, "device": smi}), flush=True)
+
+
 def ns_options_main():
     """``--ns-options``: the card's line, the build, then phases 14-16."""
     import torch
@@ -2767,6 +2905,9 @@ if __name__ == "__main__":
                          "phase 23 (the fused and on-device coupled Krylov "
                          "programs) and phase 24 (the entry points' "
                          "defaults)")
+    ap.add_argument("--gemm", action="store_true",
+                    help="instead of the smoke run: phase 25 alone (the "
+                         "GEMM chain of the FDM and Schur transforms)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead of the smoke run: phase 9 alone (two rank "
                          "processes: run_parallel and its programs 9b-9d)")
@@ -2781,6 +2922,8 @@ if __name__ == "__main__":
         drivers_main()
     elif a.parallel:
         parallel_main()
+    elif a.gemm:
+        gemm_main()
     elif a.krylov:
         krylov_main()
     elif a.kernels:

@@ -9,7 +9,10 @@ eigendecompositions ``K1 Z = M1 Z Λ`` (M1-orthonormal ``Z``) per dimension::
 
 so one apply is four dense matmuls.  The pencils are decomposed once on the
 host (``scipy.linalg.eigh``, disk-cached per 1D configuration); the device
-constants are built per dtype and device on first use.
+constants are built per dtype and device on first use.  On float32 fields on
+the card the four products are the hand-written GEMM chain of
+:mod:`sem_tpu_torch.ops.gemm` (which keeps its own padded f32 bases); float64
+fields and the CPU take ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.operators import grid_const
+from sem_tpu_torch.ops import gemm
 from sem_tpu_torch.utils.tensors import device_const
 
 __all__ = ["FDM2D"]
@@ -125,6 +129,43 @@ class FDM2D:
         return torch.where(denom.abs() > 1e-12 * self._denom_scale,
                            1.0 / torch.where(denom == 0.0, 1.0, denom), 0.0)
 
+    def _gemm_diag(self, b: gemm.Bases, sigma) -> gemm.Diag:
+        """:meth:`_ginv_t` as the GEMM chain's second product applies it, in
+        the layout of the bases ``b``: the precomputed diagonal, or its σ
+        form from the f32 eigenvalues (made once per σ)."""
+        if sigma is None:
+            return gemm.Diag(1, b.matrix(self, "ginv", lambda: self._ginv,
+                                         0.0))
+        # padded modes meet zero rows of the bases; 1.0 keeps them finite
+        return gemm.sigma_diag(self, gemm.Diag(
+            2, b.vector(self, "lx", 0, lambda: self._lx, 1.0),
+            b.vector(self, "ly", 1, lambda: self._ly, 1.0), alpha=self.alpha,
+            sigma=float(sigma), thresh=1e-12 * self._denom_scale,
+            div0=2 if b.modes_x is not None else 1))
+
+    def _gemm_corrections(self, device) -> gemm.Corrections:
+        """The Dirichlet corrections of :meth:`__call__` as the GEMM chain's
+        first pass takes them: f32 device copies of their coefficient
+        vectors, one per Dirichlet side."""
+        if not self._has_boundary:
+            return gemm.Corrections()
+        grid = self.grid
+        x0, x1, y0, y1 = self._x0, self._x1, self._y0, self._y1
+
+        def c(key, host):
+            return device_const(self, ("gemm", key), host, torch.float32,
+                                device)
+
+        return gemm.Corrections(
+            cw=c("cw", lambda: grid.K1x[x0:x1, 0]) if x0 == 1 else None,
+            ce=(c("ce", lambda: grid.K1x[x0:x1, grid.Ngx - 1])
+                if x1 == grid.Ngx - 1 else None),
+            cs=c("cs", lambda: grid.K1y[y0:y1, 0]) if y0 == 1 else None,
+            cn=(c("cn", lambda: grid.K1y[y0:y1, grid.Ngy - 1])
+                if y1 == grid.Ngy - 1 else None),
+            m1x=c("m1x", lambda: grid.m1x[x0:x1]),
+            m1y=c("m1y", lambda: grid.m1y[y0:y1]))
+
     def __call__(self, r: torch.Tensor, sigma=None) -> torch.Tensor:
         """Solve for one RHS ``(N,)`` or a stacked batch ``(..., N)``.
 
@@ -136,6 +177,19 @@ class FDM2D:
         batch = r.shape[:-1]
         R = r.reshape(batch + (grid.Ngx, grid.Ngy))
         x0, x1, y0, y1 = self._x0, self._x1, self._y0, self._y1
+
+        if gemm.takes(r.device, r.dtype):
+            # the kernel's chain: the corrections below in its first pass,
+            # the interior of the result and R's boundary rows in its last
+            b = gemm.bases(self, lambda: self._Zx, lambda: self._Zy,
+                           r.device, self._lx, self._ly)
+            R3 = R.reshape((-1, grid.Ngx, grid.Ngy))
+            out = torch.empty_like(R3, memory_format=torch.contiguous_format)
+            gemm.transform(R3, b, out, self._gemm_diag(b, sigma),
+                           (x0, y0, x1 - x0, y1 - y0),
+                           self._gemm_corrections(r.device),
+                           ring=self._has_boundary)
+            return out.reshape(batch + (grid.N,))
 
         if self._has_boundary:
             bmask = device_const(self, "bmask", lambda: self._bmask,

@@ -235,8 +235,8 @@ the last line):
 
 ``python3 chip_smoke.py --kernels`` runs phases 1-4, 7, 8 and 8b alone (the
 kernel checks and timings at both dtypes), ``python3 chip_smoke.py --gemm``
-phase 25 alone (:func:`gemm_phase`: the GEMM chain of the FDM and Schur
-transforms beside ``torch.matmul``),
+phase 25 alone (:func:`gemm_phase`: the even-odd FDM transforms beside
+their plain forms),
 ``python3 chip_smoke.py --ns-options`` runs phases 14-16 alone,
 ``python3 chip_smoke.py --parallel`` phase 9 (with 9b-9d) alone,
 ``python3 chip_smoke.py --adjoint`` phases 17-19 (after one north-star
@@ -2415,22 +2415,24 @@ def _smi_line():
 
 
 def gemm_phase(smi):
-    """Phase 25: the GEMM chain of the FDM and spectral-Schur transforms
-    (``ops/gemm.py``, ``csrc/fdm_gemm.cu``) at the main path's shapes: the
-    NS velocity FDM (P16 64×64, batch 2, 1023²), the CD FDM (P16 32×32,
-    Dirichlet in x, 511×513) and the 'spectral' Schur block (P16 64×64,
-    1025²).  Per transform a line: whether the chain ran in even-odd form,
-    its device µs (``device_us``), the FFMA bound of the products it ran at
-    67 TFLOP/s and the share of it the chain reaches, the same transform on
-    ``torch.matmul`` (the plain path, cuBLAS SGEMM, its TFLOP/s counted on
-    the plain products) as ``library_ms``, and both errors against the f64
-    transform, relative to its maximum (the kernel's must be at most 1.5
-    times cuBLAS's); then one line per product the chain ran, kernel
-    against ``torch.matmul`` on unpadded operands of the same shape.
-    Returns the JSON entries."""
+    """Phase 25: the f32 FDM transforms in even-odd form (``ops/gemm.py``,
+    ``csrc/evenodd_passes.cu``) at the main path's shapes: the NS velocity
+    FDM (P16 64×64, batch 2, 1023²) and the CD FDM (P16 32×32, Dirichlet in
+    x, 511×513); the 'spectral' Schur block (P16 64×64, 1025²) keeps its
+    ``torch.matmul`` code and is not timed here.  Per transform a line: its
+    device µs (``device_us``), those of its split and merge passes alone
+    (``split_us``, ``merge_us``), the FFMA
+    bound of the four even-odd products at 67 TFLOP/s and the share of it
+    the transform reaches; the same chain with the passes' plain PyTorch
+    twins as ``library_ms`` (every kernel a library's); the plain transform
+    of the unsplit bases on ``torch.matmul`` (cuBLAS SGEMMs on the odd
+    sides) as ``plain_ms``; the errors of the chain and of the plain path
+    against the f64 transform, relative to its maximum (the chain's must
+    be at most 1.5 times the plain path's).  Then one line per product:
+    its shape and device µs alone.  Returns the JSON entries."""
     import torch
 
-    from sem_tpu_torch import FDM2D, NavierStokesSolver
+    from sem_tpu_torch import FDM2D
     from sem_tpu_torch.mesh import Grid2D
     from sem_tpu_torch.ops import LAUNCHES, gemm
 
@@ -2440,91 +2442,104 @@ def gemm_phase(smi):
     def rel(got, ref):
         return float((got.double() - ref).abs().max() / ref.abs().max())
 
-    def library(fn):
-        """``fn()`` with the solvers on their ``torch.matmul`` code."""
-        takes = gemm.takes
-        gemm.takes = lambda device, dtype: False
+    def plain_pass(merge, F, U, out, window, corr, Pp, Qp):
+        if merge:
+            gemm._merge_plain(out, U, F, window)
+        else:
+            out.copy_(gemm._split_plain(F, window, corr, Pp, Qp))
+
+    def patched(fn, **attrs):
+        """``fn()`` with attributes of ``ops/gemm.py`` replaced."""
+        old = {k: getattr(gemm, k) for k in attrs}
+        for k, v in attrs.items():
+            setattr(gemm, k, v)
         try:
             return fn()
         finally:
-            gemm.takes = takes
+            for k, v in old.items():
+                setattr(gemm, k, v)
 
-    # (M, N, K, batch) of each product of the plain path (cuBLAS's work)
-    shape_plain = {"fdm_velocity_1023x2": (1023, 1023, 1023, 2),
-                   "fdm_cd_511x513": (511, 513, 512, 1),
-                   "schur_1025": (1025, 1025, 1025, 1)}
     g64 = Grid2D(16, 64, 64, 1.0, 1.0)
     g32 = Grid2D(16, 32, 32, 1.0, 1.0)
-    ns = NavierStokesSolver(1.0, 1.0, Re=100.0, Gr=0.0, P=16, N_ex=64,
-                            N_ey=64, u_N=1.0, iprint=[], device=dev)
-    spectral64, spectral32 = ns._spectral(torch.float64), \
-        ns._spectral(torch.float32)
     fv, fc = FDM2D(g64), FDM2D(g32, (True, True), (False, False))
-    cases = {   # name: (apply, input, owner of the bases, (p, q, batch))
-        "fdm_velocity_1023x2": (fv, (2, g64.N), fv, (1023, 1023, 2)),
-        "fdm_cd_511x513": (fc, (1, g32.N), fc, (511, 513, 1)),
-        "schur_1025": (lambda rp: (spectral64 if rp.dtype == torch.float64
-                                   else spectral32)(rp, 0.0),
-                       (ns.N,), ns._spec, (1023, 1023, 1)),
+    cases = {   # name: (the FDM, fields)
+        "fdm_velocity_1023x2": (fv, 2),
+        "fdm_cd_511x513": (fc, 1),
     }
+    ones = torch.ones(1, dtype=torch.float32, device=dev)
     out = []
-    for name, (apply, shape, owner, (p, q, batch)) in cases.items():
-        x64 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    for name, (apply, B) in cases.items():
+        g = apply.grid
+        x64 = torch.randn((B, g.N), generator=gen,
+                          dtype=torch.float64).to(dev)
         x = x64.float()
         ref = apply(x64)
         err = rel(apply(x), ref)
-        lib_err = library(lambda: rel(apply(x), ref))
-        n0 = LAUNCHES["fdm_gemm"]
+        plain_err = patched(lambda: rel(apply(x), ref),
+                            takes=lambda device, dtype: False)
+        n0 = LAUNCHES["evenodd_pass"]
         apply(x)
-        launches = LAUNCHES["fdm_gemm"] - n0
+        passes = LAUNCHES["evenodd_pass"] - n0
         us = device_us(lambda: apply(x))
-        lib_us = library(lambda: device_us(lambda: apply(x)))
-        # the products the chain ran: in even-odd form four per product of
-        # half the depth and width
-        b, = owner._gemm_bases.values()
-        if b.modes_x is None:
-            s, t = b.zx.shape[1], b.zy.shape[1]
-        else:
-            (p, s), (q, t), batch = b.zx.shape[1:], b.zy.shape[1:], 4 * batch
-        prods = [(s, q, p), (s, t, q), (p, t, s), (p, q, t)]
-        flops = sum(gemm.flops(M, N, K, batch) for M, N, K in prods)
-        # the plain path's products, cuBLAS's work
-        lib_flops = 4 * gemm.flops(*shape_plain[name])
+        lib_us = patched(lambda: device_us(lambda: apply(x)),
+                         _pass=plain_pass)
+        plain_us = patched(lambda: device_us(lambda: apply(x)),
+                           takes=lambda device, dtype: False)
+        b, = (v for (_, dtype), v in apply._gemm_bases.items()
+              if dtype == torch.float32)
+        (_, Pp, Sp), (_, Qp, Tp) = b.zx.shape, b.zy.shape
+        # the two passes alone, on the transform's own window and scratch
+        F = x.reshape(-1, g.Ngx, g.Ngy)
+        window = (apply._x0, apply._y0, apply._x1 - apply._x0,
+                  apply._y1 - apply._y0)
+        corr = apply._gemm_corrections(ones)
+        R = F.new_empty((2, Pp, B, 2, Qp))
+        split_us = device_us(lambda: gemm._pass(False, F, None, R, window,
+                                                corr, Pp, Qp))
+        U = torch.randn(2, 2, Pp, B, Qp, generator=gen).to(dev)
+        merged = torch.empty_like(F)
+        merge_us = device_us(lambda: gemm._pass(True, F, U, merged, window,
+                                                corr, Pp, Qp))
+        # (batch, M, N, K) of the four products, as transform runs them
+        prods = {"C1": (2, Sp, 2 * B * Qp, Pp), "W": (2, 2 * Sp * B, Tp, Qp),
+                 "C3": (2, Pp, 2 * B * Tp, Sp), "U": (2, 2 * Pp * B, Qp, Tp)}
+        flops = sum(2 * n * M * N * K for n, M, N, K in prods.values())
         bound = 1e6 * flops / F32_FLOPS
-        _require(launches == 4 and err <= 1.5 * lib_err,
-                 f"{name}: {launches} launches, error {err:.3e} against "
-                 f"cuBLAS {lib_err:.3e}")
-        _line("gemm_chain", case=name, parity=b.modes_x is not None,
-              device_us=f"{us:.2f}", bound_us=f"{bound:.2f}",
-              share=f"{bound / us:.3f}", tflops=f"{flops / us / 1e6:.2f}",
+        _require(passes == 2 and err <= 1.5 * plain_err,
+                 f"{name}: {passes} pass launches, error {err:.3e} against "
+                 f"the plain path's {plain_err:.3e}")
+        _line("gemm_chain", case=name, device_us=f"{us:.2f}",
+              bound_us=f"{bound:.2f}", share=f"{bound / us:.3f}",
+              tflops=f"{flops / us / 1e6:.2f}",
               library_ms=f"{lib_us / 1e3:.4f}",
-              library_tflops=f"{lib_flops / lib_us / 1e6:.2f}",
-              err=f"{err:.3e}", library_err=f"{lib_err:.3e}")
-        out.append({"kernel": "fdm_gemm", "case": name, "device_ms":
-                    us / 1e3, "bound_ms": bound / 1e3,
-                    "library_ms": lib_us / 1e3, "err": err,
-                    "library_err": lib_err})
-        for M, N, K in prods:
-            a = torch.randn(batch, K, M, generator=gen).to(dev)
-            b = torch.randn(batch, K, N, generator=gen).to(dev)
-            ap = torch.zeros(batch, K, -(-M // 4) * 4, device=dev)[..., :M]
-            bp = torch.zeros(batch, K, -(-N // 4) * 4, device=dev)[..., :N]
-            ap.copy_(a)
-            bp.copy_(b)
-            c = torch.empty(batch, M, N, device=dev)
-            k_us = device_us(lambda: gemm.gemm(ap, bp, c))
-            at = a.transpose(1, 2).contiguous()
-            l_us = device_us(lambda: torch.matmul(at, b))
-            sched = gemm.schedule(M, N, K, batch, torch.cuda.
-                                  get_device_properties(dev).
-                                  multi_processor_count)
-            f = gemm.flops(M, N, K, batch)
-            _line("gemm_product", case=name, M=M, N=N, K=K, batch=batch,
-                  blocks=sched.blocks, units=len(sched.units),
-                  split=sched.split, device_us=f"{k_us:.2f}",
-                  tflops=f"{f / k_us / 1e6:.2f}",
-                  library_us=f"{l_us:.2f}",
-                  library_tflops=f"{f / l_us / 1e6:.2f}")
+              plain_ms=f"{plain_us / 1e3:.4f}", split_us=f"{split_us:.2f}",
+              merge_us=f"{merge_us:.2f}", err=f"{err:.3e}",
+              plain_err=f"{plain_err:.3e}")
+        out.append({"kernel": "evenodd_chain", "case": name,
+                    "device_ms": us / 1e3, "bound_ms": bound / 1e3,
+                    "library_ms": lib_us / 1e3, "plain_ms": plain_us / 1e3,
+                    "split_ms": split_us / 1e3, "merge_ms": merge_us / 1e3,
+                    "err": err, "plain_err": plain_err})
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen).to(dev)
+
+        # each product's operands with the strides transform gives them
+        zx, zy = rand(2, Pp, Sp), rand(2, Qp, Tp)
+        operands = {
+            "C1": (zx.transpose(1, 2), rand(2, Pp, 2 * B * Qp)),
+            "W": (rand(2, Sp, 2 * B * Qp).as_strided(
+                (2, 2 * Sp * B, Qp), (Qp, 2 * Qp, 1)), zy),
+            "C3": (zx, rand(2, Sp, 2 * B * Tp)),
+            "U": (rand(2, Pp, 2 * B * Tp).as_strided(
+                (2, 2 * Pp * B, Tp), (Tp, 2 * Tp, 1)), zy.transpose(1, 2))}
+        for pname, (n, M, N, K) in prods.items():
+            a, c = operands[pname]
+            p_us = device_us(lambda: torch.bmm(a, c))
+            f = 2 * n * M * N * K
+            _line("gemm_product", case=name, product=pname, batch=n, M=M,
+                  N=N, K=K, device_us=f"{p_us:.2f}",
+                  tflops=f"{f / p_us / 1e6:.2f}")
     return out
 
 
@@ -2907,7 +2922,7 @@ if __name__ == "__main__":
                          "defaults)")
     ap.add_argument("--gemm", action="store_true",
                     help="instead of the smoke run: phase 25 alone (the "
-                         "GEMM chain of the FDM and Schur transforms)")
+                         "even-odd FDM transforms)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead of the smoke run: phase 9 alone (two rank "
                          "processes: run_parallel and its programs 9b-9d)")

@@ -10,9 +10,9 @@ eigendecompositions ``K1 Z = M1 Z Λ`` (M1-orthonormal ``Z``) per dimension::
 so one apply is four dense matmuls.  The pencils are decomposed once on the
 host (``scipy.linalg.eigh``, disk-cached per 1D configuration); the device
 constants are built per dtype and device on first use.  On float32 fields on
-the card the four products are the hand-written GEMM chain of
-:mod:`sem_tpu_torch.ops.gemm` (which keeps its own padded f32 bases); float64
-fields and the CPU take ``torch.matmul``.
+the card, where the grid is symmetric about its midlines, the four products
+run in even-odd form (:mod:`sem_tpu_torch.ops.gemm`, which keeps its own f32
+bases); float64 fields, other grids and the CPU take the plain products.
 """
 from __future__ import annotations
 
@@ -125,36 +125,38 @@ class FDM2D:
         if sigma is None:
             return self._const("ginv", like)
         lx, ly = self._const("lx", like), self._const("ly", like)
-        denom = lx[:, None] + ly[None, :] + self.alpha + float(sigma)
+        return self._sigma_ginv(lx[:, None], ly[None, :], sigma)
+
+    def _sigma_ginv(self, lx, ly, sigma):
+        """:meth:`_ginv_t`'s σ form from eigenvalues ``lx``, ``ly`` laid
+        out to broadcast against each other."""
+        denom = lx + ly + self.alpha + float(sigma)
         return torch.where(denom.abs() > 1e-12 * self._denom_scale,
                            1.0 / torch.where(denom == 0.0, 1.0, denom), 0.0)
 
-    def _gemm_diag(self, b: gemm.Bases, sigma) -> gemm.Diag:
-        """:meth:`_ginv_t` as the GEMM chain's second product applies it, in
-        the layout of the bases ``b``: the precomputed diagonal, or its σ
-        form from the f32 eigenvalues (made once per σ)."""
+    def _gemm_diag(self, b: gemm.Bases, sigma) -> torch.Tensor:
+        """:meth:`_ginv_t` in the layout of the even-odd chain's diagonal
+        (the bases ``b``'s): the precomputed matrix, or its σ form from the
+        f32 eigenvalues in the same operations, made at each call."""
         if sigma is None:
-            return gemm.Diag(1, b.matrix(self, "ginv", lambda: self._ginv,
-                                         0.0))
+            return b.matrix(self, "ginv", lambda: self._ginv, 0.0)
         # padded modes meet zero rows of the bases; 1.0 keeps them finite
-        return gemm.sigma_diag(self, gemm.Diag(
-            2, b.vector(self, "lx", 0, lambda: self._lx, 1.0),
-            b.vector(self, "ly", 1, lambda: self._ly, 1.0), alpha=self.alpha,
-            sigma=float(sigma), thresh=1e-12 * self._denom_scale,
-            div0=2 if b.modes_x is not None else 1))
+        return self._sigma_ginv(
+            b.vector(self, "lx", 0, lambda: self._lx, 1.0),
+            b.vector(self, "ly", 1, lambda: self._ly, 1.0), sigma)
 
-    def _gemm_corrections(self, device) -> gemm.Corrections:
-        """The Dirichlet corrections of :meth:`__call__` as the GEMM chain's
-        first pass takes them: f32 device copies of their coefficient
-        vectors, one per Dirichlet side."""
+    def _gemm_corrections(self, like) -> gemm.Corrections:
+        """The Dirichlet corrections of :meth:`__call__` as the even-odd
+        chain's split pass takes them: copies of their coefficient vectors
+        in ``like``'s dtype and device, one per Dirichlet side."""
         if not self._has_boundary:
             return gemm.Corrections()
         grid = self.grid
         x0, x1, y0, y1 = self._x0, self._x1, self._y0, self._y1
 
         def c(key, host):
-            return device_const(self, ("gemm", key), host, torch.float32,
-                                device)
+            return device_const(self, ("gemm", key), host, like.dtype,
+                                like.device)
 
         return gemm.Corrections(
             cw=c("cw", lambda: grid.K1x[x0:x1, 0]) if x0 == 1 else None,
@@ -178,17 +180,17 @@ class FDM2D:
         R = r.reshape(batch + (grid.Ngx, grid.Ngy))
         x0, x1, y0, y1 = self._x0, self._x1, self._y0, self._y1
 
-        if gemm.takes(r.device, r.dtype):
-            # the kernel's chain: the corrections below in its first pass,
-            # the interior of the result and R's boundary rows in its last
-            b = gemm.bases(self, lambda: self._Zx, lambda: self._Zy,
-                           r.device, self._lx, self._ly)
+        b = (gemm.bases(self, lambda: self._Zx, lambda: self._Zy, r.device,
+                        r.dtype)
+             if gemm.takes(r.device, r.dtype) else None)
+        if b is not None:
+            # the even-odd chain: the corrections below in its split pass,
+            # the interior of the result and R's boundary rows in its merge
             R3 = R.reshape((-1, grid.Ngx, grid.Ngy))
             out = torch.empty_like(R3, memory_format=torch.contiguous_format)
             gemm.transform(R3, b, out, self._gemm_diag(b, sigma),
                            (x0, y0, x1 - x0, y1 - y0),
-                           self._gemm_corrections(r.device),
-                           ring=self._has_boundary)
+                           self._gemm_corrections(r))
             return out.reshape(batch + (grid.N,))
 
         if self._has_boundary:

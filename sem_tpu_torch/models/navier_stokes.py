@@ -54,7 +54,6 @@ from sem_tpu_torch.krylov import (CapturedOperator, fgmres, gmres,
                                   refined_gmres_host, rownorm_estimate,
                                   strip_chunk)
 from sem_tpu_torch.mesh import Grid2D
-from sem_tpu_torch.ops import gemm
 from sem_tpu_torch.ops import (RowStrips, apply_coupled_system_best,
                                apply_coupled_system_sharded)
 from sem_tpu_torch.ops.sharded import strip_maps
@@ -414,62 +413,30 @@ class NavierStokesSolver:
     def _spectral(self, dtype):
         """Ŝ⁻¹ apply of the 'spectral' Schur block in ``dtype``: tensor solve
         on the interior rows + exact elimination of the boundary stiffness
-        rows (see ``sem_tpu.models.navier_stokes._make_spectral``).  At
-        float32 on the card the tensor solve is the GEMM chain of
-        :mod:`sem_tpu_torch.ops.gemm`, which reads the interior of ``rp``
-        with the pin as zero (the ring of the masked field is zero, so only
-        the interior rows of the bases meet it) and leaves a zero ring."""
+        rows (see ``sem_tpu.models.navier_stokes._make_spectral``)."""
         grid = self.grid
         Ngx, Ngy = grid.Ngx, grid.Ngy
-        kernel = gemm.takes(self.device, dtype)
 
         def c(name, dtype=dtype):
             return self._spec.const(name, dtype, self.device)
 
+        Zx, Zy = c("Zx"), c("Zy")
         # K(dp_z) on the boundary ring from two thin matmuls (dp_z is zero
         # on every edge, so the cross-direction terms vanish)
         K1e, K1yTe = c("K1e"), c("K1yTe")
         m1y = self._g("m1y", dtype)
         m1x_in = self._g("m1x", dtype)[1:-1]
-        Kbb_inv = c("Kbb_inv")
+        nz = c("nz", torch.bool)
+        esafe, ksum, Kbb_inv = c("esafe"), c("ksum"), c("Kbb_inv")
         mb_or_pin, pin = self._mb_or_pin, self._pin
-        if kernel:
-            spec, host = self._spec, self._spec.host
-            # a mode's diagonal depends on its 1D pencil value and
-            # stiffness quotient (esum, ksum at the other direction's first
-            # mode)
-            bases = gemm.bases(
-                spec, lambda: host["Zx"][1:-1], lambda: host["Zy"][1:-1],
-                self.device,
-                np.stack([host["esafe"][:, 0], host["ksum"][:, 0]], 1),
-                np.stack([host["esafe"][0, :], host["ksum"][0, :]], 1))
-            gksum = bases.matrix(spec, "ksum", lambda: host["ksum"], 0.0)
-            gesafe = bases.matrix(spec, "esafe", lambda: host["esafe"], 1.0)
-            gnz = bases.matrix(spec, "nz", lambda: host["nz"], False,
-                               torch.bool)
-            interior = (1, 1, Ngx - 2, Ngy - 2)
-        else:
-            Zx, Zy = c("Zx"), c("Zy")
-            nz = c("nz", torch.bool)
-            esafe, ksum = c("esafe"), c("ksum")
 
         def apply_(rp, sigma):
-            if kernel:
-                # the interior of rp with the pin as zero in, dp_z with a
-                # zero ring out
-                dp_z = torch.empty(Ngx, Ngy, dtype=dtype, device=rp.device)
-                diag = gemm.sigma_diag(spec, gemm.Diag(
-                    3, gksum, gesafe, gnz, sigma=float(sigma)))
-                gemm.transform(rp.view(1, Ngx, Ngy), bases,
-                               dp_z.view(1, Ngx, Ngy), diag, interior,
-                               zero=divmod(pin, Ngy))
-            else:
-                ginv = torch.where(nz, (ksum + sigma) / esafe, 0.0)
-                r_int = torch.where(mb_or_pin, 0.0, rp).reshape(Ngx, Ngy)
-                W = Zx.T @ (r_int @ Zy)
-                dp_z = Zx @ ((ginv * W) @ Zy.T)
-                _edges_set_(dp_z, torch.zeros(
-                    2 * Ngy + 2 * (Ngx - 2), dtype=dtype, device=rp.device))
+            ginv = torch.where(nz, (ksum + sigma) / esafe, 0.0)
+            r_int = torch.where(mb_or_pin, 0.0, rp).reshape(Ngx, Ngy)
+            W = Zx.T @ (r_int @ Zy)
+            dp_z = Zx @ ((ginv * W) @ Zy.T)
+            _edges_set_(dp_z, torch.zeros(2 * Ngy + 2 * (Ngx - 2),
+                                          dtype=dtype, device=rp.device))
             zrows = (K1e @ dp_z) * m1y[None, :]
             zcols = (dp_z[1:-1, :] @ K1yTe) * m1x_in[:, None]
             zb = torch.cat([zrows[0], zrows[1], zcols[:, 0], zcols[:, 1]])

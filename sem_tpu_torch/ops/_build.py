@@ -55,13 +55,8 @@ _SIGNATURES.update({name[:-3] + "bf16": args
                     for name, args in list(_SIGNATURES.items())})
 # P, out[3]: the tensor-core kernels' staged geometry (mma.cuh)
 _SIGNATURES["sem_mma_geometry"] = [_I, _P]
-# params (a GemmParams, ops/gemm.py's _Params), grid, stream; and out[2]:
-# the size of GemmParams and the k depth of a stage, which ops/gemm.py
-# checks against its own
-_SIGNATURES["sem_fdm_gemm_f32"] = [_P, _I, _P]
-_SIGNATURES["sem_fdm_gemm_geometry"] = [_P]
-# params (a PrepParams), finish, grid, stream
-_SIGNATURES["sem_prepare_f32"] = [_P, _I, _I, _P]
+# params (a PassParams, ops/gemm.py's _PassParams), merge, grid, stream
+_SIGNATURES["sem_evenodd_pass_f32"] = [_P, _I, _I, _P]
 
 
 def build_dir() -> pathlib.Path:

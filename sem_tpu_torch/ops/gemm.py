@@ -1,59 +1,59 @@
-"""The f32 GEMM chain of the FDM and spectral-Schur eigenbasis transforms on
-the card (``csrc/fdm_gemm.cu``), its schedule and its operands.
+"""The f32 eigenbasis transform of the FDM preconditioner on the card, in
+even-odd form: four batched cuBLAS products of half the depth and width
+between two hand-written passes (``csrc/evenodd_passes.cu``).
 
 :func:`transform` computes, for each field ``F`` of a batch,
 
     U = Zx · (D ∘ (Zxᵀ · R · Zy)) · Zyᵀ
 
-with ``R`` a window of ``F`` (less ``FDM2D``'s Dirichlet corrections, with
-the Schur block's pin read as zero) and writes ``U`` into that window of the
-output field: a prepare pass, four launches of one hand-written GEMM kernel,
-each a product ``C = D ∘ (Aᵀ B)`` with ``A`` stored ``K × M`` and ``B``
-stored ``K × N`` along their unit strides, and a finish pass.  The products
-read every operand that way: the bases as ``Zx``, ``Zy`` and as transposed
-copies ``ZxT``, ``ZyT``, and the intermediates from scratch that the
-product before wrote transposed where the next one reads it so::
-
-    Sᵀ = (Zxᵀ R)ᵀ,  W = D ∘ (S Zy),  Vᵀ = (Zx W)ᵀ,  U = V Zyᵀ
-
-(the plain path computes ``Zxᵀ (R Zy)``: the same products in f32 fmaf,
-associated the other way).
+with ``R`` a window of ``F`` less ``FDM2D``'s Dirichlet corrections, and
+writes ``U`` into that window of the output field, ``F``'s values around it.
 
 **Even-odd form.**  On a grid symmetric about its midlines (every main-path
-grid) each 1D basis splits into even and odd columns (:func:`parity`; a
-degenerate eigenvalue's mixed pair is split within its span, which leaves
-the transform's operator as it was).  The prepare pass then sums and
-differences mirrored rows and columns of ``R`` (four parity pairs a field),
-each product becomes four of half the depth and width, a quarter of the
-operations, on the even or odd halves of the bases, and the finish pass
-merges the four results back.  Where a grid is not symmetric the chain runs
-the products on the whole window.
+grid) each 1D basis splits into even and odd columns (:func:`parity`).
+With ``Ẑ[a]`` the first half of the rows of the columns of parity ``a``
+and ``R̂[a, b]`` the sums (even) or differences (odd) of mirrored rows and
+columns of ``R``,
 
-:func:`bases` keeps the f32 bases (either form) zero-padded to rows of a
-multiple of 4 floats, so that the kernel stages them in 16-byte copies;
+    Zxᵀ R Zy = Σ over (a, b) of the modes of parity (a, b): Ẑx[a]ᵀ R̂[a, b] Ẑy[b]
+
+so each product becomes four of half the depth and width, half the
+operations of the plain ones.  The split pass writes ``R̂``, the merge pass
+adds the four results back into the window's mirrored quarters.
+
+**Layouts.**  Each product is one ``torch.bmm`` batched over the two
+parities of the basis it contracts with, every other index folded into the
+rows or columns of its operand, so that no product copies its operands
+(``Pp``, ``Sp``, ``Qp``, ``Tp``: the half-window's rows and columns and the
+modes per parity in x and y, each padded with zeros to a multiple of 4
+floats, so that every row and batch entry starts 16-byte aligned)::
+
+    R̂   (ax, r, f, by, l)          the split pass
+    C1  (ax, i, f, by, l)  = Ẑx[ax]ᵀ R̂          batch ax
+    W   (by, ax, i, f, j)  = C1 Ẑy[by]           batch by, rows (ax, i, f)
+    W'  (ax, i, f, by, j)  = D ∘ W               one elementwise product
+    C3  (ax, r, f, by, j)  = Ẑx[ax] W'           batch ax
+    U   (by, ax, r, f, l)  = C3 Ẑy[by]ᵀ          batch by, rows (ax, r, f)
+
+(``f`` the field, ``r``/``l`` half-window rows and columns, ``i``/``j``
+modes).  The products are cuBLAS SGEMMs in f32 (TF32 stays off).  The
+hand-written passes read the field once and write it once: the split
+applies the window and the corrections on the way in, the merge writes the
+window and the field's ring on the way out.
+
+:func:`bases` keeps the f32 bases in that form, once per owner and device;
 :meth:`Bases.matrix` and :meth:`Bases.vector` lay the diagonal's host data
-out in the bases' mode order.
+out in ``D``'s layout.  Where a basis has no even-odd form :func:`bases`
+returns None and ``FDM2D`` keeps its plain ``torch.matmul`` code, as it
+does for float64 fields and on the CPU (:func:`takes`).
 
-:func:`schedule` cuts a product into units, an output tile of 128 × 128 and
-a range of its k slices, for at most one block per SM: whole tiles, or where
-they would leave SMs idle or a wave ragged a stream-K cut of the tiles' k
-slices into one even wave (a makespan model in k slices, a tile one row or
-column deep at half the cost of a full one, as the kernel skips the warps
-past the edge).  A split tile is summed by the last of its pieces in k
-order, so the bits do not depend on the schedule's timing.
-
-f32 CUDA tensors only: the solvers call :func:`transform` for float32
-fields on the card (:func:`takes`), and keep their ``torch.matmul`` code for
-float64 and for the CPU.  A build or launch failure raises.  Each launch
-adds one to ``kernels.LAUNCHES`` (``"fdm_gemm"`` per product,
-``"fdm_gemm_pass"`` per pass; a CUDA graph's replay adds what its capture
-recorded), each chain one to ``profiling.COUNTERS["fdm.gemm_launches"]``.
+Each pass launch adds one to ``kernels.LAUNCHES["evenodd_pass"]`` (a CUDA
+graph's replay adds what its capture recorded), each transform one to
+``profiling.COUNTERS["fdm.gemm_launches"]``.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import heapq
 import typing
 
 import numpy as np
@@ -63,234 +63,32 @@ from sem_tpu_torch.ops.kernels import _launch
 from sem_tpu_torch.utils.profiling import COUNTERS
 from sem_tpu_torch.utils.tensors import device_const
 
-__all__ = ["BM", "BK", "BLOCKS_PER_SM", "MAX_BLOCKS", "MAX_UNITS",
-           "MAX_SPLIT_TILES", "Schedule", "schedule", "tile_cost", "Diag",
-           "parity",
-           "Bases", "bases", "takes", "sigma_diag", "gemm", "gemm_plain",
-           "Corrections", "transform", "flops"]
+__all__ = ["PARITY_TOL", "parity", "Bases", "bases", "takes",
+           "Corrections", "transform"]
 
-#: rows and columns of an output tile; k depth of a slice; blocks an SM
-#: holds (``BM``, ``BK``, ``FDM_GEMM_MIN_BLOCKS`` in ``csrc/fdm_gemm.cu``)
-BM = 128
-BK = 16
-BLOCKS_PER_SM = 1
-#: most blocks of a launch, and most units a launch's table holds
-#: (``MAX_BLOCKS``, ``MAX_UNITS``): a product whose units do not fit runs
-#: whole tiles round robin without a table
-MAX_BLOCKS = 320
-MAX_UNITS = 400
-#: tiles a product with split tiles may have: the per-device counters
-MAX_SPLIT_TILES = 8192
-#: what a piece of a split tile adds to its block, in k slices: its partial
-#: sums out (and, for the piece that sums the tile, the others' in)
-SPLIT_COST = 1.0
-#: a stream-K schedule is taken over whole tiles only if its makespan is
-#: below this share of theirs (the model's slack)
-STREAM_K_GAIN = 0.95
+#: :func:`parity`'s test of a column: its mirror asymmetry at most this
+#: share of its largest entry, under half an f32 ulp of that entry, so that
+#: the f32 halves round from the same values as the whole column
+PARITY_TOL = 3e-8
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-class Schedule(typing.NamedTuple):
-    """A product's work on ``blocks`` persistent blocks: block ``g`` runs
-    ``units[block_start[g]:block_start[g + 1]]``, each unit ``(tile, k0,
-    k1, piece, pieces)`` the k slices ``k0 .. k1-1`` of a tile, piece
-    ``piece`` of the ``pieces`` that cover it (at consecutive places); an
-    empty table means whole tiles ``g, g + blocks, ...``.  ``makespan``:
-    the model's k slices of the busiest block."""
-    tiles_m: int
-    tiles_n: int
-    blocks: int
-    block_start: tuple
-    units: tuple
-    makespan: float
-
-    @property
-    def split(self) -> bool:
-        """Whether some tile is cut into pieces (partial sums)."""
-        return any(u[4] > 1 for u in self.units)
+def _pad4(n: int) -> int:
+    return _cdiv(n, 4) * 4
 
 
-def tile_cost(rows: int, cols: int) -> float:
-    """Time of a tile with ``rows`` valid rows and ``cols`` valid columns,
-    as a share of a full tile's: the most warps with products on one of the
-    SM's four schedulers (warp mod 4), over the two of a full tile.  The
-    kernel skips the warps past the edge, and skews its 2 × 4 warps of 64 ×
-    32 so that a tile one row or one column deep keeps one warp per
-    scheduler (half the time)."""
-    per_scheduler = [0] * 4
-    for w in range(8):
-        wm = w // 4
-        wn = (w % 4 + wm) % 4
-        if wm * 64 < rows and wn * 32 < cols:
-            per_scheduler[w % 4] += 1
-    return max(per_scheduler) / 2
-
-
-def _whole_tiles(w, kt, slots) -> tuple:
-    """Whole tiles, longest first to the least loaded of ``min(slots,
-    tiles)`` blocks (a tile ``t`` costs ``w[t]`` a k slice): (blocks,
-    block_start, units, makespan); round robin without a table where the
-    tiles overflow it."""
-    tiles = len(w)
-    blocks = min(slots, tiles)
-    if tiles > MAX_UNITS:
-        return (blocks, (), (),
-                max(sum(w[g::blocks]) for g in range(blocks)) * kt)
-    heap = [(0.0, g) for g in range(blocks)]
-    lists = [[] for _ in range(blocks)]
-    for t in sorted(range(tiles), key=lambda t: -w[t]):
-        load, g = heapq.heappop(heap)
-        lists[g].append(t)
-        heapq.heappush(heap, (load + w[t] * kt, g))
-    start = np.cumsum([0] + [len(x) for x in lists]).tolist()
-    return (blocks, tuple(start),
-            tuple((t, 0, kt, 0, 1) for x in lists for t in x),
-            max(load for load, _ in heap))
-
-
-def _stream_k(w, kt, blocks) -> tuple:
-    """The tiles' k slices in tile order, cut into ``blocks`` ranges of
-    equal cost (a slice of tile ``t`` costs ``w[t]``), each block's range
-    split at tile boundaries into units: (blocks, block_start, units,
-    makespan), or None where the units overflow the table."""
-    tiles = len(w)
-    start_cost = np.concatenate([[0.0], np.cumsum(np.asarray(w) * kt)])
-    total = start_cost[-1]
-    cut = [0]
-    for g in range(1, blocks):
-        pos = g * total / blocks
-        t = min(int(np.searchsorted(start_cost, pos, side="right")) - 1,
-                tiles - 1)
-        k = min(kt, int(round((pos - start_cost[t]) / w[t])))
-        cut.append(max(cut[-1], t * kt + k))
-    cut.append(tiles * kt)
-    pieces = [[(t, max(lo - t * kt, 0), min(hi - t * kt, kt))
-               for t in range(lo // kt, _cdiv(hi, kt))]
-              for lo, hi in zip(cut, cut[1:])]
-    count = {}
-    for x in pieces:
-        for t, _, _ in x:
-            count[t] = count.get(t, 0) + 1
-    seen, units, loads = {}, [], []
-    for x in pieces:
-        load = 0.0
-        for t, k0, k1 in x:
-            n = count[t]
-            p = seen[t] = seen.get(t, -1) + 1
-            units.append((t, k0, k1, p, n))
-            load += w[t] * (k1 - k0) + (
-                SPLIT_COST * (1 + (n - 1) * (p == 0)) if n > 1 else 0.0)
-        loads.append(load)
-    if len(units) > MAX_UNITS:
-        return None
-    start = np.cumsum([0] + [len(x) for x in pieces]).tolist()
-    return blocks, tuple(start), tuple(units), max(loads)
-
-
-@functools.lru_cache(maxsize=256)
-def schedule(M: int, N: int, K: int, batch: int, nsm: int,
-             bk: int = BK) -> Schedule:
-    """The units and blocks of ``C = Aᵀ B`` (``M × N``, depth ``K``,
-    ``batch`` entries) on a card of ``nsm`` SMs, :data:`BLOCKS_PER_SM`
-    block slots each: whole tiles, longest first to the least loaded block,
-    or, where that leaves slots idle or a wave ragged, a stream-K cut of
-    every tile's k slices into one even wave (over every slot, or a whole
-    number of blocks per tile where the tiles are few, so that fewer pieces
-    are summed), taken when the model's makespan is below
-    :data:`STREAM_K_GAIN` of the whole tiles'.  A tile costs
-    :func:`tile_cost` a slice; a piece of a split tile :data:`SPLIT_COST`
-    more (the first piece, which a block runs last and so sums the tile,
-    the others' too).  ``bk``: the k depth of a slice."""
-    tm, tn, kt = _cdiv(M, BM), _cdiv(N, BM), _cdiv(K, bk)
-    w = [tile_cost(min(BM, M - a * BM), min(BM, N - b * BM))
-         for a in range(tm) for b in range(tn)] * batch
-    slots = min(nsm * BLOCKS_PER_SM, MAX_BLOCKS)
-    best = _whole_tiles(w, kt, slots)
-    tiles = len(w)
-    if tiles <= MAX_SPLIT_TILES:
-        for blocks in sorted({slots} | set(range(2 * tiles, slots, tiles))):
-            sk = _stream_k(w, kt, min(blocks, tiles * kt))
-            if sk is not None and sk[3] < STREAM_K_GAIN * best[3]:
-                best = sk
-    return Schedule(tm, tn, *best)
-
-
-def flops(M: int, N: int, K: int, batch: int = 1) -> int:
-    """Operations of one product: a multiply and an add per term."""
-    return 2 * M * N * K * batch
-
-
-class _Unit(ctypes.Structure):
-    """``Unit`` of ``csrc/fdm_gemm.cu``."""
-    _fields_ = [("tile", ctypes.c_ushort), ("k0", ctypes.c_ushort),
-                ("k1", ctypes.c_ushort), ("piece", ctypes.c_ubyte),
-                ("pieces", ctypes.c_ubyte)]
-
-
-class _Params(ctypes.Structure):
-    """``GemmParams`` of ``csrc/fdm_gemm.cu``, field by field."""
-    _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    _fields_ = [("a", _P), ("a_ld", _L), ("a_bs", _L),
-                ("b", _P), ("b_ld", _L), ("b_bs", _L),
-                ("c", _P), ("c_sm", _L), ("c_sn", _L), ("c_bs", _L),
-                ("d", _P), ("d_ld", _L), ("d_bs", _L),
-                ("partial", _P), ("counters", _P),
-                ("a_div", _I), ("a_n", _I), ("b_div", _I), ("b_n", _I),
-                ("d_div", _I), ("d_n", _I),
-                ("M", _I), ("N", _I), ("K", _I), ("batch", _I),
-                ("tiles_m", _I), ("tiles_n", _I),
-                ("a_vec", _I), ("b_vec", _I), ("c_vec", _I),
-                ("n_units", _I),
-                ("block_start", ctypes.c_ushort * (MAX_BLOCKS + 1)),
-                ("units", _Unit * MAX_UNITS)]
-
-
-class Diag(typing.NamedTuple):
-    """The factor ``D`` of the second product, in the f32 operations of the
-    plain path: ``mode`` 0 none; 1 the matrix ``d0`` (``FDM2D``'s
-    precomputed ``ginv``); 2 ``1/(d0[i] + d1[j] + alpha + sigma)``, 0 where
-    its magnitude is at most ``thresh`` (``FDM2D._ginv_t``); 3
-    ``(d0 + sigma) / d1`` where the bool matrix ``d2`` holds, else 0 (the
-    'spectral' Schur block).  Each tensor has a leading dimension of ``n``
-    entries, the product's batch entry ``b`` reading entry ``(b // div) %
-    n`` (``div0`` for ``d0`` and ``d2``, ``div1`` for ``d1``); the matrices
-    are contiguous, ``n × M × N``, the vectors ``n × M`` and ``n × N``."""
-    mode: int = 0
-    d0: torch.Tensor = None
-    d1: torch.Tensor = None
-    d2: torch.Tensor = None
-    alpha: float = 0.0
-    sigma: float = 0.0
-    thresh: float = 0.0
-    div0: int = 1
-    div1: int = 1
-
-
-def _pad4(a: np.ndarray) -> np.ndarray:
-    """``a`` (``… × c``) in the leading columns of zeros of a width that is
-    a multiple of 4."""
-    out = np.zeros(a.shape[:-1] + (_cdiv(a.shape[-1], 4) * 4,))
-    out[..., :a.shape[-1]] = a
-    return out
-
-
-def parity(Z: np.ndarray, values: np.ndarray = None, tol: float = 1e-6):
+def parity(Z: np.ndarray, tol: float = PARITY_TOL):
     """The even-odd form of a basis ``Z`` (``n × s``: rows the grid's nodes
     in order, columns the modes) of an operator symmetric about the grid's
     middle row: ``(Ẑ, modes)``, ``Ẑ`` of ``2 × P × S`` (``P = n - n // 2``):
     ``Ẑ[0]`` the even columns' first ``P`` rows, ``Ẑ[1]`` the odd columns'
     first ``n // 2`` rows, zero beyond; ``modes`` the two arrays of the
     columns' indices in ``Z``.  A column is even or odd to ``tol`` of its
-    largest entry.  Columns that are neither, which an eigensolver returns
-    for a degenerate eigenvalue, are taken in runs of neighbours whose
-    ``values`` (``s`` or ``s × k``: what the diagonal of the transform
-    depends on, equal within such a run) agree, and the run's span is split
-    into its even and odd parts (orthonormal in the columns' own inner
-    product, so that the transform's operator is unchanged).  None where
-    that fails, or ``n < 2``."""
+    largest entry; None where a column is neither (a grid that is not
+    symmetric), or ``n < 2``."""
     n, s = Z.shape
     h = n // 2
     if h == 0:
@@ -298,31 +96,8 @@ def parity(Z: np.ndarray, values: np.ndarray = None, tol: float = 1e-6):
     scale = tol * np.abs(Z).max(axis=0)
     even = np.abs(Z - Z[::-1]).max(axis=0) <= scale
     odd = np.abs(Z + Z[::-1]).max(axis=0) <= scale
-    mixed = list(np.flatnonzero(~(even ^ odd)))
-    Z = Z.copy()
-    if mixed:
-        if values is None:
-            return None
-        v = np.asarray(values, dtype=float).reshape(s, -1)
-        vtol = 1e-9 * np.abs(v).max()
-        while mixed:
-            run = [mixed.pop(0)]
-            while mixed and mixed[0] == run[-1] + 1 and \
-                    np.abs(v[mixed[0]] - v[run[0]]).max() <= vtol:
-                run.append(mixed.pop(0))
-            C = Z[:, run]
-            parts = []
-            for sign in (1.0, -1.0):
-                X = np.linalg.lstsq(C, 0.5 * (C + sign * C[::-1]),
-                                    rcond=None)[0]
-                U, sv, _ = np.linalg.svd(X)
-                parts.append(C @ U[:, sv > 0.5])
-            if sum(p.shape[1] for p in parts) != len(run):
-                return None
-            ne = parts[0].shape[1]
-            Z[:, run] = np.concatenate(parts, axis=1)
-            even[run], odd[run] = False, False
-            even[run[:ne]], odd[run[ne:]] = True, True
+    if not np.all(even ^ odd):
+        return None
     modes = (np.flatnonzero(even), np.flatnonzero(odd))
     P, S = n - h, max(map(len, modes))
     out = np.zeros((2, P, S))
@@ -332,306 +107,87 @@ def parity(Z: np.ndarray, values: np.ndarray = None, tol: float = 1e-6):
 
 
 class Bases(typing.NamedTuple):
-    """The f32 bases as :func:`transform` reads them (from :func:`bases`).
-    Even-odd form (``modes_x``, ``modes_y`` set): ``zx`` ``2 × P × S`` and
-    ``zxt`` ``2 × S × P`` per parity, ``zy``, ``zyt`` likewise; else the
-    plain bases ``zx`` (``p × s``), ``zxt`` (``s × p``), ``zy``, ``zyt``.
-    Rows padded to a multiple of 4 floats (views of the padded copies)."""
+    """The f32 bases as :func:`transform` reads them (from :func:`bases`):
+    ``zx`` ``2 × Pp × Sp`` (per x parity the half-window's rows and modes,
+    zero-padded to multiples of 4), ``zy`` ``2 × Qp × Tp``; ``modes_x``,
+    ``modes_y`` each parity's columns in the whole basis."""
     zx: torch.Tensor
-    zxt: torch.Tensor
     zy: torch.Tensor
-    zyt: torch.Tensor
-    modes_x: tuple = None
-    modes_y: tuple = None
+    modes_x: tuple
+    modes_y: tuple
 
-    def matrix(self, owner, key, host: typing.Callable[[], np.ndarray], pad,
-               dtype=torch.float32) -> torch.Tensor:
+    def matrix(self, owner, key, host: typing.Callable[[], np.ndarray],
+               pad) -> torch.Tensor:
         """The host matrix ``host()`` over the modes (``s × t``) in the
-        layout of the chain's second product, on the bases' device, cached
-        on ``owner``: ``4 × Sx × Sy`` in even-odd form (entry ``2 ax + by``
-        the modes of x parity ``ax`` and y parity ``by``, ``pad`` beyond
-        them), else ``1 × s × t``."""
+        layout of ``D``, ``(by, ax, i, 1, j)`` (``pad`` beyond the modes),
+        of the bases' dtype and device, cached on ``owner``."""
         def build():
             a = np.asarray(host())
-            if self.modes_x is None:
-                return a[None]
-            Sx, Sy = self.zx.shape[2], self.zy.shape[2]
-            out = np.full((4, Sx, Sy), pad, dtype=a.dtype)
+            Sp, Tp = self.zx.shape[2], self.zy.shape[2]
+            out = np.full((2, 2, Sp, 1, Tp), pad, dtype=a.dtype)
             for ax, mx in enumerate(self.modes_x):
                 for by, my in enumerate(self.modes_y):
-                    out[2 * ax + by, :len(mx), :len(my)] = a[np.ix_(mx, my)]
+                    out[by, ax, :len(mx), 0, :len(my)] = a[np.ix_(mx, my)]
             return out
 
-        return device_const(owner, ("gemm", key), build, dtype,
+        return device_const(owner, ("gemm", key), build, self.zx.dtype,
                             self.zx.device)
 
     def vector(self, owner, key, axis, host, pad) -> torch.Tensor:
         """The host vector ``host()`` over the modes of ``axis`` (0: x, 1:
-        y): ``2 × S`` in even-odd form (``pad`` beyond the modes), else
-        ``1 × s``; f32 on the bases' device, cached on ``owner``."""
+        y) in ``D``'s layout, ``(1, 2, Sp, 1, 1)`` or ``(2, 1, 1, 1, Tp)``
+        (``pad`` beyond the modes), of the bases' dtype and device, cached
+        on ``owner``."""
         def build():
             a = np.asarray(host())
             modes = self.modes_x if axis == 0 else self.modes_y
-            if modes is None:
-                return a[None]
-            out = np.full((2, self.zx.shape[2] if axis == 0 else
-                           self.zy.shape[2]), pad)
+            out = np.full((2, (self.zx if axis == 0 else self.zy).shape[2]),
+                          pad)
             for par, m in enumerate(modes):
                 out[par, :len(m)] = a[m]
-            return out
+            return (out[None, :, :, None, None] if axis == 0 else
+                    out[:, None, None, None, :])
 
-        return device_const(owner, ("gemm", key), build, torch.float32,
+        return device_const(owner, ("gemm", key), build, self.zx.dtype,
                             self.zx.device)
 
 
 def bases(owner, Zx: typing.Callable[[], np.ndarray],
-          Zy: typing.Callable[[], np.ndarray], device, values_x=None,
-          values_y=None) -> Bases:
+          Zy: typing.Callable[[], np.ndarray], device,
+          dtype=torch.float32) -> typing.Optional[Bases]:
     """The :class:`Bases` of the host bases ``Zx()`` (``p × s``) and
-    ``Zy()`` (``q × t``): the even-odd form where both bases have one (grids
-    symmetric about their midlines; ``values_*``: :func:`parity`'s, per
-    mode), else the plain one; f32 views of
-    zero-padded device copies of them and of their transposes, made once per
+    ``Zy()`` (``q × t``) where both have an even-odd form (grids symmetric
+    about their midlines), else None; copies of ``dtype`` made once per
     device and kept on ``owner``
-    (:func:`~sem_tpu_torch.utils.tensors.device_const`), the y copies the x
-    ones where the host arrays are equal (square grids)."""
+    (:func:`~sem_tpu_torch.utils.tensors.device_const`), the y copy the x
+    one where the host arrays are equal (square grids)."""
     cache = owner.__dict__.setdefault("_gemm_bases", {})
-    device = torch.device(device)
-    out = cache.get(device)
-    if out is not None:
-        return out
-    px, py = parity(Zx(), values_x), parity(Zy(), values_y)
-    use = px is not None and py is not None
-    same = np.array_equal(Zx(), Zy())
+    key = (torch.device(device), dtype)
+    if key in cache:
+        return cache[key]
+    px, py = parity(Zx()), parity(Zy())
+    out = None
+    if px is not None and py is not None:
+        def padded(key, p):
+            def build():
+                z = p[0]
+                full = np.zeros((2, _pad4(z.shape[1]), _pad4(z.shape[2])))
+                full[:, :z.shape[1], :z.shape[2]] = z
+                return full
+            return device_const(owner, ("gemm", key), build, dtype,
+                                device)
 
-    def padded(key, host):
-        t = device_const(owner, ("gemm", key), lambda: _pad4(host()),
-                         torch.float32, device)
-        return t[..., :host().shape[-1]]
-
-    if use:
-        def pair(key, p):
-            return (padded(key, lambda: p[0]),
-                    padded(key + "T", lambda: p[0].transpose(0, 2, 1)))
-        zx, zxt = pair("Zx_parity", px)
-        zy, zyt = (zx, zxt) if same else pair("Zy_parity", py)
-        out = Bases(zx, zxt, zy, zyt, px[1], py[1])
-    else:
-        zx, zxt = padded("Zx", Zx), padded("ZxT", lambda: Zx().T)
-        zy, zyt = ((zx, zxt) if same else
-                   (padded("Zy", Zy), padded("ZyT", lambda: Zy().T)))
-        out = Bases(zx, zxt, zy, zyt)
-    return cache.setdefault(device, out)
-
-
-_DEVICE = {}   # device → (SM count, zeroed counters)
-
-
-def _device_state(device: torch.device):
-    state = _DEVICE.get(device)
-    if state is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("fdm_gemm: first launch on a device inside a "
-                               "CUDA graph capture; run one eagerly first")
-        nsm = torch.cuda.get_device_properties(device).multi_processor_count
-        counters = torch.zeros(MAX_SPLIT_TILES, dtype=torch.int32,
-                               device=device)
-        state = _DEVICE.setdefault(device, (nsm, counters))
-    return state
-
-
-def _aligned(t: torch.Tensor, *strides) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in strides)
-
-
-def _operand(t: torch.Tensor, name: str, dev):
-    """(pointer, row stride, batch stride, entries, 16-byte copies) of an
-    operand ``(K, X)`` or ``(n, K, X)`` with unit stride along X."""
-    if t.dtype != torch.float32 or t.device != dev:
-        raise TypeError(f"fdm_gemm: operand {name} must be a float32 tensor "
-                        f"on {dev}, got {t.dtype} on {t.device}")
-    if t.stride(-1) != 1 and t.shape[-1] > 1:
-        raise ValueError(f"fdm_gemm: operand {name} needs unit stride along "
-                         f"its last dimension, got strides {t.stride()}")
-    bs, n = (t.stride(0), t.shape[0]) if t.dim() == 3 else (0, 1)
-    return t.data_ptr(), t.stride(-2), bs, n, _aligned(t, t.stride(-2), bs)
-
-
-def params(sched: Schedule, M, N, K, batch, a, b, c, d) -> bytes:
-    """A launch's parameters but for its addresses: ``a``, ``b`` (row
-    stride, batch stride, entries, batch divisor, 16-byte copies), ``c``
-    (row, column and batch strides, store mode), ``d`` (the diagonal's row
-    stride, batch stride, entries, batch divisor)."""
-    p = _Params(a_ld=a[0], a_bs=a[1], a_n=a[2], a_div=a[3], a_vec=int(a[4]),
-                b_ld=b[0], b_bs=b[1], b_n=b[2], b_div=b[3], b_vec=int(b[4]),
-                c_sm=c[0], c_sn=c[1], c_bs=c[2], c_vec=c[3],
-                d_ld=d[0], d_bs=d[1], d_n=d[2], d_div=d[3],
-                M=M, N=N, K=K, batch=batch, tiles_m=sched.tiles_m,
-                tiles_n=sched.tiles_n, n_units=len(sched.units))
-    p.block_start[:len(sched.block_start)] = sched.block_start
-    for i, u in enumerate(sched.units):
-        p.units[i] = _Unit(*u)
-    return bytes(p)
-
-
-@functools.lru_cache(maxsize=512)
-def _template(M, N, K, batch, nsm, *layout) -> tuple:
-    """The launch's parameters but for its addresses and scalars (as
-    bytes), its blocks, and its units if a tile is split (else 0)."""
-    s = schedule(M, N, K, batch, nsm)
-    return (params(s, M, N, K, batch, *layout), s.blocks,
-            len(s.units) if s.split else 0)
-
-
-@functools.lru_cache(maxsize=1)
-def _check_layout() -> None:
-    """Raise unless the library's kernel has :class:`_Params`' layout,
-    :data:`BK` and :data:`BLOCKS_PER_SM`."""
-    from sem_tpu_torch.ops import _build
-
-    out = (ctypes.c_int * 3)()
-    _build.library().sem_fdm_gemm_geometry(out)
-    want = (ctypes.sizeof(_Params), BK, BLOCKS_PER_SM)
-    if tuple(out) != want:
-        raise RuntimeError(f"fdm_gemm: the kernel's (GemmParams bytes, BK, "
-                           f"blocks per SM) are {tuple(out)}, ops/gemm.py's "
-                           f"{want}")
+        zx = padded("Zx_parity", px)
+        zy = zx if np.array_equal(Zx(), Zy()) else padded("Zy_parity", py)
+        out = Bases(zx, zy, px[1], py[1])
+    return cache.setdefault(key, out)
 
 
 def takes(device, dtype) -> bool:
-    """Whether the solvers' transforms of fields of ``dtype`` on ``device``
-    run on the kernel (float32 on the card); the others keep their
-    ``torch.matmul`` code."""
+    """Whether ``FDM2D``'s transforms of fields of ``dtype`` on ``device``
+    take the even-odd chain (float32 on the card, where :func:`bases` finds
+    the form); the others keep their ``torch.matmul`` code."""
     return torch.device(device).type == "cuda" and dtype == torch.float32
-
-
-def _entries(t: torch.Tensor, batch: int, div: int) -> torch.Tensor:
-    """The batch entries ``(b // div) % n`` of ``t`` (``n × …``) for
-    ``b < batch``, as a tensor (the plain path's)."""
-    if batch == t.shape[0] and div == 1:
-        return t
-    idx = (torch.arange(batch, device=t.device) // div) % t.shape[0]
-    return t[idx]
-
-
-def _diag_plain(diag: Diag, batch: int) -> torch.Tensor:
-    """:class:`Diag`'s matrices by tensor ops (the plain path's)."""
-    d0 = _entries(diag.d0, batch, diag.div0)
-    if diag.mode == 1:
-        return d0
-    d1 = _entries(diag.d1, batch, diag.div1)
-    if diag.mode == 2:
-        d = d0[:, :, None] + d1[:, None, :] + diag.alpha + diag.sigma
-        return torch.where(d.abs() > diag.thresh,
-                           1.0 / torch.where(d == 0.0, 1.0, d), 0.0)
-    d2 = _entries(diag.d2, batch, diag.div0)
-    return torch.where(d2, (d0 + diag.sigma) / d1, 0.0)
-
-
-#: σ diagonals an owner keeps (:func:`sigma_diag`)
-SIGMA_CACHE = 2
-
-
-def sigma_diag(owner, diag: Diag) -> Diag:
-    """``diag`` as the matrix the kernel multiplies by (mode 1), made once
-    per σ and kept on ``owner`` (the last :data:`SIGMA_CACHE` of them): a
-    linearization applies the same σ form hundreds of times, and a captured
-    operator replays it.  Inside a CUDA graph capture a σ not yet kept is
-    made in the capture and not kept (the capture's memory goes with its
-    graph)."""
-    if diag.mode in (0, 1):
-        return diag
-    cache = owner.__dict__.setdefault("_gemm_sigma", {})
-    key = (diag.d0.device, diag.mode, diag.sigma)
-    d = cache.get(key)
-    if d is None:
-        d = _diag_matrix(diag)
-        if diag.d0.device.type != "cuda" or \
-                not torch.cuda.is_current_stream_capturing():
-            cache[key] = d
-            while len(cache) > SIGMA_CACHE:
-                cache.pop(next(iter(cache)))
-    return Diag(1, d)
-
-
-def _diag_matrix(diag: Diag):
-    """The diagonal's matrices that the kernel multiplies by: ``d0`` for
-    mode 1, else the σ forms by tensor ops (:func:`_diag_plain`, the plain
-    path's f32 operations), one per batch entry of their period; None for
-    mode 0."""
-    if diag.mode == 0:
-        return None
-    if diag.mode == 1:
-        return diag.d0
-    period = diag.d0.shape[0] * diag.div0
-    if diag.d1 is not None:
-        period = max(period, diag.d1.shape[0] * diag.div1)
-    return _diag_plain(diag, period)
-
-
-def gemm_plain(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-               diag: Diag = Diag(), a_div=1, b_div=1) -> torch.Tensor:
-    """Plain PyTorch version of :func:`gemm` (``torch.matmul``; any device
-    and dtype)."""
-    batch = out.shape[0]
-    a = _entries(a, batch, a_div) if a.dim() == 3 else a
-    b = _entries(b, batch, b_div) if b.dim() == 3 else b
-    c = a.transpose(-2, -1) @ b
-    if diag.mode:
-        c = c * _diag_plain(diag, batch)
-    out.copy_(c.expand_as(out))
-    return out
-
-
-def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-         diag: Diag = Diag(), a_div: int = 1, b_div: int = 1) -> torch.Tensor:
-    """``out[e] = D ∘ (A[e]ᵀ B[e])`` on the card: ``a`` ``(K, M)`` or
-    ``(n, K, M)``, ``b`` ``(K, N)`` or ``(n, K, N)``, both f32 with unit
-    stride along their last dimension, batch entry ``e`` reading entry
-    ``(e // div) % n`` of a 3-D operand (a 2-D one is shared); ``out`` an
-    f32 ``(batch, M, N)`` view with any strides.  Tensors on the CPU take
-    :func:`gemm_plain`."""
-    if out.device.type == "cpu":
-        return gemm_plain(a, b, out, diag, a_div, b_div)
-    batch, M, N = out.shape
-    K = a.shape[-2]
-    if a.shape[-1] != M or tuple(b.shape[-2:]) != (K, N):
-        raise ValueError(f"fdm_gemm: shapes {tuple(a.shape)} and "
-                         f"{tuple(b.shape)} do not give {tuple(out.shape)}")
-    dev = out.device
-    if out.dtype != torch.float32:
-        raise TypeError(f"fdm_gemm: a float32 output, got {out.dtype}")
-    nsm, counters = _device_state(dev)
-    ap, *a_lay = _operand(a, "a", dev)
-    bp, *b_lay = _operand(b, "b", dev)
-    a_lay.insert(3, a_div)
-    b_lay.insert(3, b_div)
-    c_bs, c_sm, c_sn = out.stride()
-    c_vec = (1 if c_sn == 1 and _aligned(out, c_sm, c_bs) else
-             2 if c_sm == 1 and _aligned(out, c_sn, c_bs) else
-             3 if c_sm == 1 else 0)
-    d = _diag_matrix(diag)
-    d_lay = (0, 0, 1, 1)
-    if d is not None:
-        if d.device != dev or d.dtype != torch.float32 or \
-                not d.is_contiguous() or tuple(d.shape[1:]) != (M, N):
-            raise ValueError(f"fdm_gemm: the diagonal must be a contiguous "
-                             f"f32 (n, {M}, {N}) tensor on {dev}")
-        d_lay = (N, M * N, d.shape[0], diag.div0 if diag.mode == 1 else 1)
-    raw, blocks, split_units = _template(
-        M, N, K, batch, nsm, tuple(a_lay), tuple(b_lay),
-        (c_sm, c_sn, c_bs, c_vec), d_lay)
-    _check_layout()
-    p = _Params.from_buffer_copy(raw)
-    p.a, p.b, p.c = ap, bp, out.data_ptr()
-    p.d = 0 if d is None else d.data_ptr()
-    if split_units:
-        part = torch.empty(split_units * BM * BM, dtype=torch.float32,
-                           device=dev)
-        p.partial, p.counters = part.data_ptr(), counters.data_ptr()
-    _launch("fdm_gemm", "sem_fdm_gemm", "f32", dev, ctypes.addressof(p),
-            blocks)
-    return out
 
 
 class Corrections(typing.NamedTuple):
@@ -649,26 +205,21 @@ class Corrections(typing.NamedTuple):
     m1y: torch.Tensor = None
 
 
-class _PrepParams(ctypes.Structure):
-    """``PrepParams`` of ``csrc/fdm_gemm.cu``."""
+class _PassParams(ctypes.Structure):
+    """``PassParams`` of ``csrc/evenodd_passes.cu``."""
     _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     _fields_ = [("f", _P), ("u", _P), ("out", _P), ("cw", _P), ("ce", _P),
                 ("cs", _P), ("cn", _P), ("m1x", _P), ("m1y", _P),
                 ("f_bs", _L), ("f_ld", _L), ("o_bs", _L), ("o_ld", _L),
                 ("batch", _I), ("Ngx", _I), ("Ngy", _I), ("x0", _I),
-                ("y0", _I), ("p", _I), ("q", _I), ("zx", _I), ("zy", _I),
-                ("parity", _I)]
+                ("y0", _I), ("p", _I), ("q", _I), ("Pp", _I), ("Qp", _I)]
 
 
-def _rhs_plain(F, window, corr: Corrections, zero) -> torch.Tensor:
-    """The prepare pass's right-hand side ``R`` (``batch × p × q``) by
-    tensor ops, in ``FDM2D``'s order."""
+def _rhs_plain(F, window, corr: Corrections) -> torch.Tensor:
+    """The split pass's right-hand side ``R`` (``batch × p × q``) by tensor
+    ops, in ``FDM2D``'s order."""
     x0, y0, p, q = window
     Ngx, Ngy = F.shape[1:]
-    if zero is not None and x0 <= zero[0] < x0 + p and \
-            y0 <= zero[1] < y0 + q:
-        F = F.clone()
-        F[:, zero[0], zero[1]] = 0.0
     R = F[:, x0:x0 + p, y0:y0 + q].clone()
     rows = slice(x0, x0 + p)
     cols = slice(y0, y0 + q)
@@ -683,127 +234,106 @@ def _rhs_plain(F, window, corr: Corrections, zero) -> torch.Tensor:
     return R
 
 
-def _prepare_plain(F, window, corr, zero, parity: bool) -> torch.Tensor:
-    """Plain PyTorch version of the prepare pass (the same f32 sums)."""
-    R = _rhs_plain(F, window, corr, zero)
-    if not parity:
-        return R
+def _split_plain(F, window, corr, Pp, Qp) -> torch.Tensor:
+    """Plain PyTorch version of the split pass (the same f32 sums): ``R̂``
+    as ``(ax, r, f, by, l)``, ``2 × Pp × batch × 2 × Qp``, zero past the
+    halves and in the odd half's middle row and column."""
+    R = _rhs_plain(F, window, corr)
     B, p, q = R.shape
     hp, hq = p // 2, q // 2
-    a, b = R[:, :p - hp], R.flip(1)[:, :p - hp]
-    rows = torch.stack([a + b, a - b], 1)              # B, 2, P, q
+    P, Q = p - hp, q - hq
+    a, b = R[:, :P], R.flip(1)[:, :P]
+    rows = torch.stack([a + b, a - b], 1)              # f, ax, r, q
     if p % 2:
         rows[:, 0, hp] = a[:, hp]
         rows[:, 1, hp] = 0.0
-    c, d = rows[..., :q - hq], rows.flip(3)[..., :q - hq]
-    out = torch.stack([c + d, c - d], 2)               # B, 2, 2, P, Q
+    c, d = rows[..., :Q], rows.flip(3)[..., :Q]
+    half = torch.stack([c + d, c - d], 2)              # f, ax, by, r, l
     if q % 2:
-        out[:, :, 0, :, hq] = c[:, :, :, hq]
-        out[:, :, 1, :, hq] = 0.0
-    return out.reshape(4 * B, p - hp, q - hq)
+        half[:, :, 0, :, hq] = c[:, :, :, hq]
+        half[:, :, 1, :, hq] = 0.0
+    out = R.new_zeros((2, Pp, B, 2, Qp))
+    out[:, :P, :, :, :Q] = half.permute(1, 3, 0, 2, 4)
+    return out
 
 
-def _finish_plain(out, U, F, window, parity: bool) -> None:
-    """Plain PyTorch version of the finish pass."""
+def _merge_plain(out, U, F, window) -> None:
+    """Plain PyTorch version of the merge pass: ``U`` as ``(by, ax, r, f,
+    l)`` into the window of ``out``, ``F``'s values around it."""
     x0, y0, p, q = window
-    B = out.shape[0]
-    if F is None:
-        out.zero_()
-    else:
-        out.copy_(F)
-    if not parity:
-        out[:, x0:x0 + p, y0:y0 + q] = U.reshape(B, p, q)
-        return
+    out.copy_(F)
     P, Q = p - p // 2, q - q // 2
-    u = U.reshape(B, 2, 2, P, Q)
-    i, j = torch.arange(p), torch.arange(q)
+    u = U.permute(3, 1, 0, 2, 4)[:, :, :, :P, :Q]      # f, ax, by, r, l
+    i = torch.arange(p, device=U.device)
+    j = torch.arange(q, device=U.device)
     mx, my = i >= P, j >= Q
     k = torch.where(mx, p - 1 - i, i)
     l = torch.where(my, q - 1 - j, j)
-    g = u[:, :, :, k.to(U.device)][:, :, :, :, l.to(U.device)]
-    my_, mx_ = my.to(U.device)[None, :], mx.to(U.device)[:, None]
+    g = u[:, :, :, k][:, :, :, :, l]
+    my_, mx_ = my[None, :], mx[:, None]
     te = torch.where(my_, g[:, 0, 0] - g[:, 0, 1], g[:, 0, 0] + g[:, 0, 1])
     to = torch.where(my_, g[:, 1, 0] - g[:, 1, 1], g[:, 1, 0] + g[:, 1, 1])
     out[:, x0:x0 + p, y0:y0 + q] = torch.where(mx_, te - to, te + to)
 
 
-def _pass(finish: bool, F, U, out, window, corr: Corrections, zero,
-          parity: bool) -> None:
-    """Launch the prepare (``out`` the right-hand side) or finish (``out``
-    the output field) pass; ``F`` (the field, or None in a finish that
-    leaves zeros outside the window) and ``out`` with unit stride along
-    their rows."""
+def _pass(merge: bool, F, U, out, window, corr: Corrections,
+          Pp, Qp) -> None:
+    """Launch the split (``out`` ``R̂``) or merge (``out`` the output field)
+    pass on ``F``, the field; ``F`` and ``out`` with unit stride along
+    their rows.  A block takes one output row at a time."""
     dev = out.device
     x0, y0, p, q = window
     for t in (F, out):
-        if t is not None and (t.stride(-1) != 1 or t.dtype != torch.float32
-                              or t.device != dev):
-            raise ValueError("fdm_gemm: f32 fields on one device with unit "
+        if t.stride(-1) != 1 or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError("evenodd: f32 fields on one device with unit "
                              "stride along their rows")
-    B, Ngx, Ngy = (out if finish else F).shape
-    zx, zy = (-1, -1) if zero is None else zero
+    B, Ngx, Ngy = F.shape
+    rows = B * Ngx if merge else 4 * B * Pp
+    if 4 * B * max(Pp, Ngx) >= 2 ** 31:
+        raise ValueError("evenodd: the passes count rows in 32 bits")
     ptr = (lambda t: 0 if t is None else t.data_ptr())
-    s = _PrepParams(f=ptr(F), u=ptr(U), out=out.data_ptr(),
+    s = _PassParams(f=F.data_ptr(), u=ptr(U), out=out.data_ptr(),
                     cw=ptr(corr.cw), ce=ptr(corr.ce), cs=ptr(corr.cs),
                     cn=ptr(corr.cn), m1x=ptr(corr.m1x), m1y=ptr(corr.m1y),
-                    f_bs=0 if F is None else F.stride(0),
-                    f_ld=0 if F is None else F.stride(1),
-                    o_bs=out.stride(0), o_ld=out.stride(1), batch=B, Ngx=Ngx,
-                    Ngy=Ngy, x0=x0, y0=y0, p=p, q=q, zx=zx, zy=zy,
-                    parity=int(parity))
-    n = B * Ngx * Ngy if finish else out.numel()
-    grid = max(1, min(_cdiv(n, 256), 8 * _device_state(dev)[0]))
-    _launch("fdm_gemm_pass", "sem_prepare", "f32", dev, ctypes.addressof(s),
-            int(finish), grid)
+                    f_bs=F.stride(0), f_ld=F.stride(1), o_bs=out.stride(0),
+                    o_ld=out.stride(1), batch=B, Ngx=Ngx, Ngy=Ngy, x0=x0,
+                    y0=y0, p=p, q=q, Pp=Pp, Qp=Qp)
+    _launch("evenodd_pass", "sem_evenodd_pass", "f32", dev,
+            ctypes.addressof(s), int(merge), max(1, rows))
 
 
-def _scratch(batch, rows, cols, like) -> torch.Tensor:
-    """An uninitialized ``(batch, rows, cols)`` view whose rows are padded
-    to a multiple of 4 values."""
-    return like.new_empty((batch, rows, _cdiv(cols, 4) * 4))[:, :, :cols]
-
-
-def transform(F: torch.Tensor, b: Bases, out: torch.Tensor, diag: Diag,
-              window=None, corr: Corrections = Corrections(),
-              ring: bool = False, zero=None) -> torch.Tensor:
+def transform(F: torch.Tensor, b: Bases, out: torch.Tensor,
+              diag: torch.Tensor, window=None,
+              corr: Corrections = Corrections()) -> torch.Tensor:
     """``U = Zx (D ∘ (Zxᵀ R Zy)) Zyᵀ`` for each field of ``F`` (``batch ×
     Ngx × Ngy``, unit stride along its rows), ``R`` its ``window`` ``(x0,
     y0, p, q)`` (the whole field by default) less the Dirichlet corrections
-    ``corr``, with ``F``'s element ``zero = (x, y)`` read as zero; ``b`` the
-    bases of :func:`bases`, ``diag`` over the modes in their layout
-    (:meth:`Bases.matrix`, :meth:`Bases.vector`).  Writes ``out`` (the
-    shape of ``F``, unit stride along its rows): ``U`` in the window,
-    ``F``'s values (``ring``) or zeros outside it.  A prepare pass, four
-    launches of the GEMM kernel and a finish pass; in even-odd form the
-    passes split ``R`` and merge ``U``, and each product is four of half
-    the depth and width, batch entry ``4f + 2ax + by`` field ``f``'s parity
-    pair; returns ``out``."""
+    ``corr``; ``b`` the bases of :func:`bases`, ``diag`` ``D`` in its
+    layout ``(by, ax, i, 1, j)`` (:meth:`Bases.matrix`,
+    :meth:`Bases.vector`).  Writes ``out`` (the shape of ``F``, unit stride
+    along its rows): ``U`` in the window, ``F``'s values outside it;
+    returns ``out``.  On the CPU the passes are their plain twins."""
     B, Ngx, Ngy = F.shape
     window = (0, 0, Ngx, Ngy) if window is None else window
-    parity = b.modes_x is not None
-    ring_field = F if ring else None
-    if out.device.type == "cpu":
-        R = _prepare_plain(F, window, corr, zero, parity)
+    _, Pp, Sp = b.zx.shape
+    _, Qp, Tp = b.zy.shape
+    card = out.device.type == "cuda"
+    if card:
+        R = F.new_empty((2, Pp, B, 2, Qp))
+        _pass(False, F, None, R, window, corr, Pp, Qp)
     else:
-        P, Q = ((window[2] - window[2] // 2, window[3] - window[3] // 2)
-                if parity else window[2:])
-        R = F.new_empty(((4 if parity else 1) * B, P, Q))
-        _pass(False, F, None, R, window, corr, zero, parity)
-    n, P, Q = R.shape
-    S, T = b.zx.shape[-1], b.zy.shape[-1]
-    div = 2 if parity else 1
-    st = _scratch(n, max(Q, T), max(S, P), out)
-    S_T = st[:, :Q, :S]                 # Sᵀ = (Zxᵀ R)ᵀ, then Vᵀ = (Zx W)ᵀ
-    W = _scratch(n, S, T, out)
-    gemm(b.zx, R, S_T.transpose(1, 2), a_div=div)
-    gemm(S_T, b.zy, W, diag)
-    V_T = st[:, :T, :P]
-    gemm(b.zxt, W, V_T.transpose(1, 2), a_div=div)
-    U = R                               # R is read: U takes its place
-    gemm(V_T, b.zyt, U)
-    if out.device.type == "cpu":
-        _finish_plain(out, U, ring_field, window, parity)
-    else:
-        _pass(True, ring_field, U, out, window, corr, zero, parity)
+        R = _split_plain(F, window, corr, Pp, Qp)
+    C1 = torch.bmm(b.zx.transpose(1, 2), R.view(2, Pp, 2 * B * Qp))
+    W = torch.bmm(C1.as_strided((2, 2 * Sp * B, Qp), (Qp, 2 * Qp, 1)), b.zy)
+    W2 = R.new_empty((2, Sp, B, 2, Tp))
+    torch.mul(W.view(2, 2, Sp, B, Tp), diag, out=W2.permute(3, 0, 1, 2, 4))
+    C3 = torch.bmm(b.zx, W2.view(2, Sp, 2 * B * Tp))
+    U = torch.bmm(C3.as_strided((2, 2 * Pp * B, Tp), (Tp, 2 * Tp, 1)),
+                  b.zy.transpose(1, 2))
+    U = U.view(2, 2, Pp, B, Qp)
+    if card:
+        _pass(True, F, U, out, window, corr, Pp, Qp)
         COUNTERS["fdm.gemm_launches"] += 1
+    else:
+        _merge_plain(out, U, F, window)
     return out

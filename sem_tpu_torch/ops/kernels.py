@@ -69,11 +69,9 @@ __all__ = ["LAUNCHES", "P_MAX", "TILE", "band_storage", "band_operators",
 LAUNCHES = {name + sfx: 0 for sfx in ("", "_bf16") for name in (
     "apply_system", "apply_coupled_system", "apply_system_sharded",
     "apply_coupled_system_sharded")}
-# the eigenbasis products of the FDM and spectral Schur transforms
-# (:mod:`sem_tpu_torch.ops.gemm`), four a transform, and the prepare and
-# finish passes around them, two a transform
-LAUNCHES["fdm_gemm"] = 0
-LAUNCHES["fdm_gemm_pass"] = 0
+# the split and merge passes of the FDM and spectral Schur transforms in
+# even-odd form (:mod:`sem_tpu_torch.ops.gemm`), two a transform
+LAUNCHES["evenodd_pass"] = 0
 
 #: the largest order the kernels B1-B4 take (the reference's limit;
 #: ``P_MAX`` in ``csrc/tile.cuh``)

@@ -1,20 +1,17 @@
-"""The f32 GEMM chain of the FDM and spectral-Schur eigenbasis transforms
-(``sem_tpu_torch.ops.gemm``, ``csrc/fdm_gemm.cu``).
+"""The f32 eigenbasis transform of the FDM preconditioner in even-odd form
+(``sem_tpu_torch.ops.gemm``, ``csrc/evenodd_passes.cu``), and the spectral
+Schur block's transform, which keeps its ``torch.matmul`` code.
 
-On the CPU: the schedule of every product of the main path's transforms
-and of small grids covers each tile's k slices once and fills the SMs;
-CPU and float64 fields keep the ``torch.matmul`` code, bit for bit, and
-launch nothing; the chain's wiring (the even-odd split and merge, the
-Dirichlet corrections and the Schur pin in the passes, operand views,
-transposed intermediates, the spectral diagonals), run with the plain
-products and passes on the CPU, agrees with that code.  ``cuda``-marked,
-on the card: the kernel's error against float64 within 1.5 times cuBLAS
-SGEMM's on the same inputs, two runs and a CUDA graph's replay equal to
-the bit, and the launch counters.
+On the CPU: CPU and float64 fields keep the plain ``torch.matmul`` code, bit
+for bit, and launch nothing; the even-odd form of the real bases keeps
+their transform; the chain's wiring (the even-odd split and merge, the
+Dirichlet corrections in the passes, the folded layouts of its four
+products, the spectral diagonals), run with the plain passes on the CPU,
+agrees with the plain code.  ``cuda``-marked, on the card: the chain's
+error against float64 within 1.5 times the plain f32 path's, two runs and a
+CUDA graph's replay equal to the bit (also after other σ on the same
+owner), the passes equal to their plain twins, and the counters.
 """
-import math
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -24,96 +21,7 @@ from sem_tpu_torch.mesh import Grid2D
 from sem_tpu_torch.ops import LAUNCHES, gemm
 from sem_tpu_torch.utils.profiling import COUNTERS
 
-H100_SMS = 132
 SIGMA = 0.37
-
-#: (P, S, Q, T, batch) of the main path's transforms in even-odd form (P
-#: physical rows and S modes per parity, batch 4 × fields): the NS velocity
-#: FDM (P16 64×64, two fields of 1023²), the spectral Schur block (its 1023
-#: interior rows, 1025 modes) and the CD FDM (P16 32×32, Dirichlet in x:
-#: 511 × 513)
-MAIN_TRANSFORMS = {"velocity": (512, 512, 512, 512, 8),
-                   "schur": (512, 513, 512, 513, 4),
-                   "cd": (256, 256, 257, 257, 4)}
-
-
-def _products(p, s, q, t, batch):
-    """(M, N, K, batch) of the chain's four products."""
-    return [(s, q, p, batch), (s, t, q, batch), (p, t, s, batch),
-            (p, q, t, batch)]
-
-
-def _check_cover(sched, M, N, K, batch, nsm):
-    """Every tile's k slices covered once, by pieces at consecutive places
-    of the table in k order; every block within the card."""
-    kt = math.ceil(K / gemm.BK)
-    tiles = sched.tiles_m * sched.tiles_n * batch
-    assert sched.tiles_m == math.ceil(M / gemm.BM)
-    assert sched.tiles_n == math.ceil(N / gemm.BM)
-    assert 1 <= sched.blocks <= min(nsm * gemm.BLOCKS_PER_SM,
-                                    gemm.MAX_BLOCKS)
-    if not sched.units:          # whole tiles round robin
-        assert tiles > gemm.MAX_UNITS
-        return
-    assert len(sched.units) <= gemm.MAX_UNITS
-    assert len(sched.block_start) == sched.blocks + 1
-    assert sched.block_start[0] == 0
-    assert sched.block_start[-1] == len(sched.units)
-    covered = {}
-    for i, (tile, k0, k1, piece, pieces) in enumerate(sched.units):
-        assert 0 <= tile < tiles and 0 <= k0 < k1 <= kt
-        assert 0 <= piece < pieces
-        covered.setdefault(tile, []).append((i, k0, k1, piece, pieces))
-    assert sorted(covered) == list(range(tiles))
-    for tile, pieces in covered.items():
-        pieces.sort(key=lambda x: x[1])
-        assert [x[1] for x in pieces] == [0] + [x[2] for x in pieces[:-1]]
-        assert pieces[-1][2] == kt
-        assert [x[3] for x in pieces] == list(range(len(pieces)))
-        assert all(x[4] == len(pieces) for x in pieces)
-        first = pieces[0][0]
-        assert [x[0] for x in pieces] == list(range(first,
-                                                    first + len(pieces)))
-
-
-@pytest.mark.parametrize("name", sorted(MAIN_TRANSFORMS))
-def test_main_path_schedules_cover_and_fill_the_card(name):
-    """The four products of each main-path transform on an H100's 132 SMs:
-    every k slice once, a block for every tile or on a third of the SMs or
-    more, and a makespan no longer than whole tiles', and, where the work
-    is more than 8 slices a block, within 25 % of its even share over the
-    block slots plus the sums of the most deeply split tile."""
-    slots = H100_SMS * gemm.BLOCKS_PER_SM
-    for M, N, K, batch in _products(*MAIN_TRANSFORMS[name]):
-        sched = gemm.schedule(M, N, K, batch, H100_SMS)
-        _check_cover(sched, M, N, K, batch, H100_SMS)
-        tiles = batch * sched.tiles_m * sched.tiles_n
-        assert sched.blocks >= min(tiles, H100_SMS // 3), (M, N, K, batch,
-                                                           sched.blocks)
-        kt = math.ceil(K / gemm.BK)
-        w = [gemm.tile_cost(min(gemm.BM, M - a * gemm.BM),
-                            min(gemm.BM, N - b * gemm.BM))
-             for a in range(sched.tiles_m)
-             for b in range(sched.tiles_n)] * batch
-        whole = gemm._whole_tiles(w, kt, slots)[3]
-        assert sched.makespan <= whole
-        even = sum(w) * kt / slots
-        if even >= 8:       # the partial sums matter little
-            deepest = max((u[4] for u in sched.units), default=1)
-            assert sched.makespan <= 1.25 * even + gemm.SPLIT_COST * (
-                deepest + 2), (M, N, K, batch, sched.makespan, even)
-
-
-@pytest.mark.parametrize("shape", [(23, 23, 23, 1), (23, 23, 23, 2),
-                                   (25, 25, 25, 1), (7, 9, 5, 3),
-                                   (129, 1, 300, 1), (1, 257, 9, 2),
-                                   (2047, 2047, 2047, 2)])
-@pytest.mark.parametrize("nsm", [1, 8, H100_SMS])
-def test_small_and_large_schedules_cover(shape, nsm):
-    """Small grids (P3), ragged and one-deep shapes, and one with too many
-    tiles for the table: every k slice once, within the blocks."""
-    sched = gemm.schedule(*shape, nsm)
-    _check_cover(sched, *shape, nsm)
 
 
 def _fdm_cases():
@@ -126,7 +34,7 @@ def _fdm_cases():
 
 
 def _fdm_before(f, r, sigma=None):
-    """``FDM2D.__call__``'s plain path as it was before the kernel."""
+    """``FDM2D.__call__``'s plain path as it was before the chain."""
     grid = f.grid
     batch = r.shape[:-1]
     R = r.reshape(batch + (grid.Ngx, grid.Ngy))
@@ -174,18 +82,19 @@ def _rhs(n, batch, dtype, seed=0):
 @pytest.mark.parametrize("sigma", [None, SIGMA])
 def test_fdm_on_the_cpu_keeps_its_matmul_bits(case, dtype, sigma):
     """CPU fields, f32 and f64, one field and a batch: the bits of the
-    ``torch.matmul`` code as it was, and no launch of the kernel."""
+    ``torch.matmul`` code as it was, and no launch of the passes."""
     f = _fdm_cases()[case]
-    before = LAUNCHES["fdm_gemm"], COUNTERS["fdm.gemm_launches"]
+    before = LAUNCHES["evenodd_pass"], COUNTERS["fdm.gemm_launches"]
     for batch in ((), (2,)):
         r = _rhs(f.grid.N, batch, dtype)
         assert torch.equal(f(r, sigma=sigma), _fdm_before(f, r, sigma))
-    assert (LAUNCHES["fdm_gemm"], COUNTERS["fdm.gemm_launches"]) == before
+    assert (LAUNCHES["evenodd_pass"], COUNTERS["fdm.gemm_launches"]) == before
 
 
 def test_dispatch_takes_only_float32_on_the_card():
-    """The kernel takes f32 fields on a CUDA device; f64 fields on the card
-    and every CPU field keep the plain path (no card needed to decide)."""
+    """The even-odd chain takes f32 fields on a CUDA device; f64 fields on
+    the card and every CPU field keep the plain path (no card needed to
+    decide)."""
     assert gemm.takes("cuda", torch.float32)
     assert gemm.takes(torch.device("cuda", 0), torch.float32)
     assert not gemm.takes("cuda", torch.float64)
@@ -200,7 +109,7 @@ def _ns(device="cpu", dtype=torch.float64, P=3, Ne=4):
 
 
 def _spectral_before(ns, dtype, rp, sigma):
-    """``_spectral``'s plain path as it was before the kernel."""
+    """``_spectral``'s ``torch.matmul`` code, written out."""
     from sem_tpu_torch.models.navier_stokes import _edges_get, _edges_set_
     grid = ns.grid
     Ngx, Ngy = grid.Ngx, grid.Ngy
@@ -234,11 +143,11 @@ def test_spectral_on_the_cpu_keeps_its_matmul_bits(dtype, sigma):
     """The 'spectral' Schur apply on the CPU: the bits of the matmul code
     as it was, and no launch."""
     ns = _ns()
-    before = LAUNCHES["fdm_gemm"], COUNTERS["fdm.gemm_launches"]
+    before = LAUNCHES["evenodd_pass"], COUNTERS["fdm.gemm_launches"]
     rp = _rhs(ns.N, (), dtype, seed=3)
     assert torch.equal(ns._spectral(dtype)(rp, sigma),
                        _spectral_before(ns, dtype, rp, sigma))
-    assert (LAUNCHES["fdm_gemm"], COUNTERS["fdm.gemm_launches"]) == before
+    assert (LAUNCHES["evenodd_pass"], COUNTERS["fdm.gemm_launches"]) == before
 
 
 def _rel(got, ref):
@@ -248,89 +157,29 @@ def _rel(got, ref):
 
 @pytest.fixture
 def chain_on_the_cpu(monkeypatch):
-    """The solvers take the GEMM chain for f32 CPU fields, its products
-    the plain ones (``gemm_plain``): the chain's wiring without a card."""
-    monkeypatch.setattr(gemm, "takes",
-                        lambda device, dtype: dtype == torch.float32)
+    """The solvers take the even-odd chain for CPU fields of every dtype,
+    its passes the plain twins: the chain's wiring without a card."""
+    monkeypatch.setattr(gemm, "takes", lambda device, dtype: True)
 
 
 @pytest.mark.parametrize("case", ["dirichlet", "x_only", "neumann",
                                   "west_only"])
 @pytest.mark.parametrize("sigma", [None, SIGMA])
 def test_chain_wiring_matches_the_fdm(case, sigma, chain_on_the_cpu):
-    """FDM2D through the chain (padded bases, in even-odd form on the
-    symmetric cases, transposed intermediates, the diagonal in the second
-    product, the interior written in place) against the f64 matmul code:
-    f32 rounding apart, for one field and a batch of two."""
+    """FDM2D through the chain (in even-odd form on the symmetric cases;
+    the plain products where a basis has none) against the matmul code as
+    it was, for one field and a batch of two: in float64 to 1e-12, in
+    float32 f32 rounding apart."""
     f = _fdm_cases()[case]
     b = gemm.bases(f, lambda: f._Zx, lambda: f._Zy, "cpu")
-    assert (b.modes_x is None) == (case == "west_only")
+    assert (b is None) == (case == "west_only")
     for batch in ((), (2,)):
-        r = _rhs(f.grid.N, batch, torch.float32, seed=1)
-        got = f(r, sigma=sigma)
+        r = _rhs(f.grid.N, batch, torch.float64, seed=1)
+        want = _fdm_before(f, r, sigma)
+        assert _rel(f(r, sigma=sigma), want) < 1e-12
+        got = f(r.float(), sigma=sigma)
         assert got.shape == r.shape and got.dtype == torch.float32
-        assert _rel(got, f(r.double(), sigma=sigma)) < 2e-5
-
-
-@pytest.mark.parametrize("sigma", [0.0, SIGMA])
-def test_chain_wiring_matches_the_spectral_schur(sigma, chain_on_the_cpu):
-    """The 'spectral' Schur apply through the chain (the interior read in
-    place with the pin as zero, the ring of the bases cut off) against the
-    f64 matmul code, f32 rounding apart."""
-    ns = _ns()
-    rp = _rhs(ns.N, (), torch.float64, seed=4)
-    got = ns._spectral(torch.float32)(rp.float(), sigma)
-    assert ns._spec._gemm_bases[torch.device("cpu")].modes_x is not None
-    assert _rel(got, ns._spectral(torch.float64)(rp, sigma)) < 2e-5
-
-
-def test_gemm_plain_reads_batch_entries_and_the_diagonals():
-    """``gemm_plain``, the kernel's plain twin: ``D ∘ (aᵀ b)``, operands
-    and diagonals read at batch entry ``(e // div) % n``, for each diagonal
-    mode."""
-    rng = np.random.default_rng(5)
-    a = torch.tensor(rng.standard_normal((2, 6, 4)))
-    b = torch.tensor(rng.standard_normal((4, 6, 3)))
-    d0 = torch.tensor(rng.standard_normal((4, 4, 3)))
-    d1 = torch.tensor(rng.uniform(1.0, 2.0, (4, 4, 3)))
-    lx = torch.tensor([[0.0, 1.0, 2.0, 3.0], [1.0, 2.0, 3.0, 4.0]])
-    ly = torch.tensor([[0.0, 1.0, 2.0], [0.5, 1.5, 2.5]])
-    nz = torch.tensor(rng.uniform(size=(4, 4, 3)) > 0.3)
-    ax = torch.tensor([0, 0, 1, 1])          # (e // 2) % 2
-    base = a[ax].transpose(1, 2) @ b
-    lsum = lx[ax][:, :, None] + ly[torch.tensor([0, 1, 0, 1])][:, None, :]
-    diags = {gemm.Diag(): base,
-             gemm.Diag(1, d0): base * d0,
-             gemm.Diag(2, lx, ly, alpha=0.0, sigma=0.0, thresh=1e-12,
-                       div0=2):
-                 base * torch.where(lsum > 0, 1.0 / lsum, 0.0),
-             gemm.Diag(3, d0, d1, nz, sigma=0.25):
-                 base * torch.where(nz, (d0 + 0.25) / d1, 0.0)}
-    for diag, want in diags.items():
-        out = torch.empty(4, 4, 3, dtype=torch.float64)
-        gemm.gemm(a, b, out, diag, a_div=2)
-        assert torch.allclose(out, want, rtol=1e-14, atol=1e-14)
-
-
-def test_sigma_diagonal_is_made_once_per_sigma():
-    """``sigma_diag``: the σ form as a matrix, the plain path's values, kept
-    on the owner per σ (the last ``SIGMA_CACHE`` of them)."""
-    owner = types.SimpleNamespace()
-    lx = torch.tensor([[0.0, 1.0, 2.0], [1.0, 2.0, 3.0]])
-    ly = torch.tensor([[0.5, 1.5], [2.5, 3.5]])
-
-    def diag(sigma):
-        return gemm.Diag(2, lx, ly, alpha=0.25, sigma=sigma, thresh=1e-12,
-                         div0=2)
-
-    got = gemm.sigma_diag(owner, diag(0.5))
-    assert got.mode == 1
-    assert torch.equal(got.d0, gemm._diag_plain(diag(0.5), 4))
-    assert gemm.sigma_diag(owner, diag(0.5)).d0 is got.d0
-    for sigma in (1.0, 2.0, 3.0):
-        gemm.sigma_diag(owner, diag(sigma))
-    assert len(owner._gemm_sigma) == gemm.SIGMA_CACHE
-    assert gemm.sigma_diag(owner, diag(0.5)).d0 is not got.d0
+        assert _rel(got, want) < 2e-5
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 6])
@@ -356,53 +205,133 @@ def test_parity_of_symmetric_and_other_bases(n):
     assert gemm.parity(Z) is None
 
 
+def _whole(Zp, modes, n):
+    """The basis (``n`` rows, the modes' columns) that ``parity``'s
+    halves stand for: each half mirrored, the odd one with its sign."""
+    h = n // 2
+    Z = np.zeros((n, sum(map(len, modes))))
+    for par, m in enumerate(modes):
+        top = Zp[par, :n - h, :len(m)]
+        Z[:n - h, m] = top
+        Z[n - h:, m] = (1 - 2 * par) * top[:h][::-1]
+    return Z
+
+
+@pytest.mark.parametrize("basis", ["dirichlet_x", "neumann_y",
+                                   "neumann_x"])
+def test_even_odd_form_keeps_the_real_transforms(basis):
+    """The even-odd form of real FDM bases (P8 on 8×8 elements: the
+    Dirichlet-Neumann pencils of the CD field, the all-Neumann pencil of
+    ``'pcd'``): every column even or odd within ``PARITY_TOL`` of its
+    largest entry, and the 1D operator ``Z diag(d) Zᵀ`` kept to 1e-12 of
+    its largest entry."""
+    grid = Grid2D(8, 8, 8, 1.0, 1.0)
+    if basis == "neumann_x":
+        f = FDM2D(grid, (False, False), (False, False))
+    else:
+        f = FDM2D(grid, (True, True), (False, False))
+    Z, values = (f._Zy, f._ly) if basis == "neumann_y" else (f._Zx, f._lx)
+    d = 1.0 / (1.0 + values)
+    Zp, modes = gemm.parity(Z)
+    assert sorted(np.concatenate(modes)) == list(range(Z.shape[1]))
+    W = _whole(Zp, modes, Z.shape[0])
+    cols = np.concatenate(modes)
+    plain = np.abs(Z[:, cols] - W[:, cols]).max(axis=0)
+    split = np.abs(Z).max(axis=0)[cols] * gemm.PARITY_TOL
+    assert np.all(plain <= split)
+    kept = (Z * d) @ Z.T
+    again = (W * d) @ W.T
+    assert np.abs(again - kept).max() <= 1e-12 * np.abs(kept).max()
+
+
 @pytest.mark.parametrize("shape", [(1, 5, 7), (2, 6, 4), (3, 1, 2)])
 def test_prepare_and_finish_passes_invert_each_other(shape):
-    """The plain prepare pass (its even-odd split of a window with the
-    corrections and the zero element, each half of the split scaled as the
-    transform's bases scale it: a pair sum counts its pair twice) and the
-    finish pass give the window back, the field's values or zeros around
-    it; the split's odd middle rows and columns are 0."""
+    """The plain split pass (its even-odd split of a window with the
+    corrections, laid out ``(ax, r, f, by, l)`` and zero past the halves,
+    each half scaled as the transform's bases scale it: a pair sum counts
+    its pair twice) and the merge pass (reading ``(by, ax, r, f, l)``) give
+    the window back, the field's values around it; the split's odd middle
+    rows and columns are 0."""
     B, p, q = shape
     rng = np.random.default_rng(2)
     F = torch.tensor(rng.standard_normal((B, p + 2, q + 1)))
     window = (1, 0, p, q)
     corr = gemm.Corrections(cw=torch.tensor(rng.standard_normal(p)),
                             m1y=torch.tensor(rng.standard_normal(q)))
-    zero = (1 + p // 2, q - 1)
-    R = gemm._rhs_plain(F, window, corr, zero)
+    R = gemm._rhs_plain(F, window, corr)
     want = F[:, 1:p + 1, :q].clone()
-    want[:, p // 2, q - 1] = 0.0
     want -= (corr.cw[:, None] * F[:, 0:1, :q]) * corr.m1y
     assert torch.equal(R, want)
-    split = gemm._prepare_plain(F, window, corr, zero, True)
     P, Q = p - p // 2, q - q // 2
-    h = split.reshape(B, 2, 2, P, Q)
+    Pp, Qp = P + 3, Q + 1
+    split = gemm._split_plain(F, window, corr, Pp, Qp)
+    assert split.shape == (2, Pp, B, 2, Qp)
+    assert torch.all(split[:, P:] == 0) and torch.all(split[..., Q:] == 0)
+    h = split.permute(2, 0, 3, 1, 4)                   # f, ax, by, r, l
     if p % 2:
         assert torch.all(h[:, 1, :, P - 1] == 0)
     if q % 2:
         assert torch.all(h[:, :, 1, :, Q - 1] == 0)
-    wx = torch.ones(P, dtype=torch.float64)
-    wy = torch.ones(Q, dtype=torch.float64)
+    wx = torch.ones(Pp, dtype=torch.float64)
+    wy = torch.ones(Qp, dtype=torch.float64)
     wx[:p // 2] = 0.5
     wy[:q // 2] = 0.5
-    for ring in (F, None):
-        out = torch.full_like(F, 7.0)
-        gemm._finish_plain(out, (h * wx[:, None] * wy).reshape(4 * B, P, Q),
-                           ring, window, True)
-        assert torch.allclose(out[:, 1:p + 1, :q], R, rtol=1e-14,
-                              atol=1e-14)
-        rest = out.clone()
-        rest[:, 1:p + 1, :q] = 0.0
-        around = torch.zeros_like(F) if ring is None else F.clone()
-        around[:, 1:p + 1, :q] = 0.0
-        assert torch.equal(rest, around)
+    U = (h * wx[:, None] * wy).permute(2, 1, 3, 0, 4)  # by, ax, r, f, l
+    out = torch.full_like(F, 7.0)
+    gemm._merge_plain(out, U, F, window)
+    assert torch.allclose(out[:, 1:p + 1, :q], R, rtol=1e-14, atol=1e-14)
+    rest, around = out.clone(), F.clone()
+    rest[:, 1:p + 1, :q] = 0.0
+    around[:, 1:p + 1, :q] = 0.0
+    assert torch.equal(rest, around)
+
+
+def test_passes_refuse_rows_past_32_bits():
+    """The passes count a field's rows in 32 bits: a batch whose rows pass
+    that raises before any launch."""
+    F = torch.empty(1, 1, 1).expand(2 ** 29, 2, 1)
+    out = torch.empty(1, 1, 1).expand(2 ** 29, 2, 1)
+    before = LAUNCHES["evenodd_pass"]
+    with pytest.raises(ValueError, match="32 bits"):
+        gemm._pass(True, F, None, out, (0, 0, 2, 1), gemm.Corrections(),
+                   4, 4)
+    assert LAUNCHES["evenodd_pass"] == before
+
+
+def test_diagonal_layout_follows_the_modes():
+    """``Bases.matrix`` and ``Bases.vector`` lay per-mode host data out as
+    ``(by, ax, i, 1, j)``: entry ``[by, ax, i, 0, j]`` the value at the
+    ``i``-th x mode of parity ``ax`` and the ``j``-th y mode of parity
+    ``by``, ``pad`` past the modes; the vectors broadcast to the same."""
+    f = FDM2D(Grid2D(2, 3, 2, 1.0, 1.5), (True, True), (False, False))
+    b = gemm.bases(f, lambda: f._Zx, lambda: f._Zy, "cpu",
+                   dtype=torch.float64)
+    g = b.matrix(f, "ginv_layout", lambda: f._ginv, -1.0)
+    lx = b.vector(f, "lx_layout", 0, lambda: f._lx, -1.0)
+    ly = b.vector(f, "ly_layout", 1, lambda: f._ly, -1.0)
+    Sp, Tp = b.zx.shape[2], b.zy.shape[2]
+    assert g.shape == (2, 2, Sp, 1, Tp)
+    assert lx.shape == (1, 2, Sp, 1, 1) and ly.shape == (2, 1, 1, 1, Tp)
+    for ax, mx in enumerate(b.modes_x):
+        for by, my in enumerate(b.modes_y):
+            for i in range(Sp):
+                for j in range(Tp):
+                    inside = i < len(mx) and j < len(my)
+                    want = f._ginv[mx[i], my[j]] if inside else -1.0
+                    assert float(g[by, ax, i, 0, j]) == want
+        for i in range(Sp):
+            want = f._lx[mx[i]] if i < len(mx) else -1.0
+            assert float(lx[0, ax, i, 0, 0]) == want
+    for by, my in enumerate(b.modes_y):
+        for j in range(Tp):
+            want = f._ly[my[j]] if j < len(my) else -1.0
+            assert float(ly[by, 0, 0, 0, j]) == want
 
 
 # ------------------------------- the card -------------------------------- #
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+        pytest.skip("needs a CUDA card: the passes have no CPU build")
     return torch.device("cuda")
 
 
@@ -419,8 +348,9 @@ def _card_fdm(name):
 
 
 def _errors(apply, x64, monkeypatch):
-    """(kernel, cuBLAS) error of ``apply`` on the f32 cast of ``x64``
-    against ``apply(x64)``, both relative to the f64 result's maximum."""
+    """(chain, plain f32 path) error of ``apply`` on the f32 cast of
+    ``x64`` against ``apply(x64)``, both relative to the f64 result's
+    maximum."""
     ref = apply(x64)
     x = x64.float()
     got = apply(x)
@@ -430,82 +360,91 @@ def _errors(apply, x64, monkeypatch):
     return _rel(got, ref), _rel(lib, ref)
 
 
+def _replays(apply, x, other_sigmas, sigma):
+    """A CUDA graph of ``apply(static, sigma)`` captured after an eager
+    warm-up, replayed on new values after eager applies at
+    ``other_sigmas`` on the same owner: (replay, eager) results."""
+    static = x.clone()
+    apply(static, sigma)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = apply(static, sigma)
+    for s in other_sigmas:
+        apply(x, s)
+    static.copy_(x * 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out, apply(x * 0.5, sigma)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CARD_FDM))
 @pytest.mark.parametrize("sigma", [None, SIGMA])
 def test_fdm_kernel_on_the_card(name, sigma, monkeypatch):
-    """FDM2D at the main path's shapes and a small grid: the kernel's error
-    against f64 at most 1.5 times cuBLAS SGEMM's, two runs bitwise equal, a
-    CUDA graph's replay bitwise the eager result, and the launch counters
-    moved (four launches a transform)."""
+    """FDM2D at the main path's shapes and a small grid: the even-odd
+    chain's error against f64 at most 1.5 times the plain f32 path's, two
+    runs bitwise equal, a CUDA graph's replay bitwise the eager result, and
+    the counters moved (two passes a transform)."""
     dev = _card()
     f, batch = _card_fdm(name)
     x64 = _rhs(f.grid.N, (batch,), torch.float64, seed=7).to(dev)
     err, lib = _errors(lambda r: f(r, sigma=sigma), x64, monkeypatch)
     assert err <= 1.5 * lib, (err, lib)
     x = x64.float()
-    chains, launches = COUNTERS["fdm.gemm_launches"], LAUNCHES["fdm_gemm"]
+    chains, launches = (COUNTERS["fdm.gemm_launches"],
+                        LAUNCHES["evenodd_pass"])
     one, two = f(x, sigma=sigma), f(x, sigma=sigma)
     assert COUNTERS["fdm.gemm_launches"] == chains + 2
-    assert LAUNCHES["fdm_gemm"] == launches + 8
+    assert LAUNCHES["evenodd_pass"] == launches + 4
     assert torch.equal(one, two)
-    static = x.clone()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = f(static, sigma=sigma)
-    static.copy_(x64.float() * 0.5)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(out, f(x64.float() * 0.5, sigma=sigma))
+    got, want = _replays(lambda r, s: f(r, sigma=s), x, (), sigma)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sigma", [0.0, SIGMA])
-def test_spectral_kernel_on_the_card(sigma, monkeypatch):
-    """The 'spectral' Schur apply on P16 64×64 (the 1025² transform): the
-    kernel's error against f64 at most 1.5 times cuBLAS SGEMM's, two runs
-    and a graph's replay bitwise equal."""
+@pytest.mark.parametrize("owner", ["fdm", "schur"])
+def test_graph_replays_after_other_sigmas_on_its_owner(owner):
+    """A graph captured at one σ replays bitwise the eager result after
+    eager applies at two other σ on the same FDM2D or Schur block (what a
+    PTC march does between a chunk's capture and its replays): the graph
+    reads no diagonal that a later σ could free.  The Schur block keeps its
+    ``torch.matmul`` code; the case holds it to the same rule."""
     dev = _card()
-    ns = _ns(dev, P=16, Ne=64)
-    rp64 = _rhs(ns.N, (), torch.float64, seed=8).to(dev)
+    if owner == "fdm":
+        f = FDM2D(Grid2D(16, 32, 32, 1.0, 1.0), (True, True), (True, True))
+        x = _rhs(f.grid.N, (2,), torch.float32, seed=9).to(dev)
 
-    def apply(rp):
-        return ns._spectral(rp.dtype)(rp, sigma)
-
-    err, lib = _errors(apply, rp64, monkeypatch)
-    assert err <= 1.5 * lib, (err, lib)
-    rp = rp64.float()
-    f32 = ns._spectral(torch.float32)
-    assert torch.equal(f32(rp, sigma), f32(rp, sigma))
-    static = rp.clone()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = f32(static, sigma)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(out, f32(rp, sigma))
+        def apply(r, s):
+            return f(r, sigma=s)
+    else:
+        ns = _ns(dev, P=16, Ne=32)
+        x = _rhs(ns.N, (), torch.float32, seed=10).to(dev)
+        apply = ns._spectral(torch.float32)
+    got, want = _replays(apply, x, (1.5, 2.5), SIGMA)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1025, 1023, 1023, 1),
-                                   (1023, 1023, 1023, 2), (511, 513, 511, 1),
-                                   (513, 513, 512, 4), (23, 23, 23, 1),
-                                   (130, 1, 17, 3)])
-def test_gemm_kernel_against_cublas(shape):
-    """One product, strided and batched as the chain runs them: the
-    kernel's error against f64 at most 1.5 times ``torch.matmul``'s at
-    f32, its stream-K sums the same bits run after run."""
+@pytest.mark.parametrize("shape", [(2, 1023, 1023), (1, 511, 513),
+                                   (1, 23, 22), (3, 1, 2)])
+def test_passes_on_the_card_equal_their_plain_twins(shape):
+    """The split and merge kernels against ``_split_plain`` and
+    ``_merge_plain`` on the same f32 data, to the bit: a window with
+    corrections on every side, odd and even sides."""
     dev = _card()
-    M, N, K, batch = shape
-    gen = torch.Generator().manual_seed(11)
-    a64 = torch.randn(batch, K, M, generator=gen, dtype=torch.float64)
-    b64 = torch.randn(batch, K, N, generator=gen, dtype=torch.float64)
-    a64, b64 = a64.to(dev), b64.to(dev)
-    ref = a64.transpose(1, 2) @ b64
-    lib = a64.float().transpose(1, 2) @ b64.float()
-    out = torch.empty(batch, M, N, device=dev)
-    gemm.gemm(a64.float(), b64.float(), out)
-    assert _rel(out, ref) <= 1.5 * _rel(lib, ref)
-    again = torch.empty_like(out)
-    gemm.gemm(a64.float(), b64.float(), again)
-    assert torch.equal(out, again)
+    B, p, q = shape
+    gen = torch.Generator().manual_seed(12)
+    F = torch.randn(B, p + 2, q + 2, generator=gen).to(dev)
+    window = (1, 1, p, q)
+    corr = gemm.Corrections(*(torch.randn(n, generator=gen).to(dev)
+                              for n in (p, p, q, q, p, q)))
+    P, Q = p - p // 2, q - q // 2
+    Pp, Qp = -(-P // 4) * 4, -(-Q // 4) * 4
+    R = F.new_empty((2, Pp, B, 2, Qp))
+    gemm._pass(False, F, None, R, window, corr, Pp, Qp)
+    assert torch.equal(R, gemm._split_plain(F, window, corr, Pp, Qp))
+    U = torch.randn(2, 2, Pp, B, Qp, generator=gen).to(dev)
+    out, want = torch.empty_like(F), torch.empty_like(F)
+    gemm._pass(True, F, U, out, window, corr, Pp, Qp)
+    gemm._merge_plain(want, U, F, window)
+    assert torch.equal(out, want)

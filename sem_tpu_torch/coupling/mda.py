@@ -80,6 +80,11 @@ FUSED_WINDOW = 10
 #: largest coupled DOF at which ``device_krylov=None`` picks the device
 #: windows: the reference's default ``SEM_TPU_DEVICE_KRYLOV_MAX_DOF``
 DEVICE_KRYLOV_MAX_DOF = 1_000_000
+#: rows of the Krylov bases of the windows' nested float64 solves allocated
+#: up front (``krylov.gmres`` ``basis_rows``): at ``mtol_precon`` they take
+#: a few iterations each, and a basis of ``restart + 1`` rows (201 at NS P16
+#: 32×32, 1.27 GB) would sit unused
+PRECON_BASIS_ROWS = 17
 #: largest coupled DOF at which PTC takes the device windows: the
 #: reference's default ``SEM_TPU_PTC_DEVICE_MAX_DOF``
 PTC_DEVICE_MAX_DOF = 150_000
@@ -451,6 +456,7 @@ class BoussinesqMDA:
         self.device_krylov = bool(device_krylov)
         self.fused = True if fused is None else bool(fused)
         self._fg = None   # (start, step, lin): _fused_programs
+        self._wops = None   # (shifts, lin, cd ops, ns ops): _window_ops
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = int(checkpoint_every)
         self.checkpoint_config = checkpoint_config or {}
@@ -777,6 +783,29 @@ class BoussinesqMDA:
 
         return precon_split
 
+    def _window_ops(self):
+        """The nested solves' operators of :meth:`_window_precon`: the CD
+        and NS ``_ops64`` (the NS ones None under ``'uzawa'``), captured,
+        on a copy of the linearization made at the first call and at each
+        change of the mass shifts; every other call copies the current
+        linearization into it, so that one CUDA graph of each serves all
+        of the MDA's coupled linear solves at those shifts."""
+        cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
+        uzawa = ns_s._linear_solver == "uzawa"
+        shifts = (cd_s._sigma, ns_s._sigma)
+        lin = (cd_s._u, cd_s._v) + (
+            () if uzawa else (ns_s._u_lin, ns_s._v_lin, *ns_s._jac))
+        if self._wops is None or self._wops[0] != shifts:
+            lin_s = tuple(t.clone() for t in lin)
+            cd_ops = cd_s._ops64(cd_s._sigma, captured=True, lin=lin_s[:2])
+            ns_ops = (None if uzawa
+                      else ns_s._ops64(captured=True, lin=lin_s[2:]))
+            self._wops = (shifts, lin_s, cd_ops, ns_ops)
+        else:
+            for dst, src in zip(self._wops[1], lin):
+                dst.copy_(src)
+        return self._wops[2:]
+
     def _window_precon(self):
         """The preconditioner of the device windows at the current
         linearization: the disciplines' float64 solves from zero at
@@ -784,7 +813,14 @@ class BoussinesqMDA:
         right-hand side, the NS ``_update_coupled_f64`` or, under
         ``'uzawa'``, ``_update_uzawa``, and the ``'bgs2'`` CD re-solve), as
         the reference's on-device window nests them.  Float64 throughout:
-        it launches no kernel."""
+        it launches no kernel.  The nested solves' operators are
+        :meth:`_window_ops`, each one CUDA graph on the card
+        (:class:`sem_tpu_torch.krylov.CapturedOperator`: the host launches
+        a graph where it launched their dozens of operations), and their
+        bases start at :data:`PRECON_BASIS_ROWS` rows.  The nested solves'
+        GMRES iterations are counted under ``mda.window_precon.cd_its``
+        (both CD solves of ``'bgs2'``) and ``mda.window_precon.ns_its``
+        (under ``'uzawa'`` the pressure-Schur GMRES's)."""
         cd_s, ns_s = self.cd_comp.cd, self.ns_comp.ns
         Nns = self.N_ns
         mtol_cd = cd_s._mtol if self.mtol_precon is None else self.mtol_precon
@@ -792,26 +828,36 @@ class BoussinesqMDA:
         f64 = torch.float64
         zcd = torch.zeros(self.N_cd, dtype=f64, device=self.device)
         zns = torch.zeros(Nns, dtype=f64, device=self.device)
+        cd_ops, ns_ops = self._window_ops()
 
         def pc(r):
             with span("mda.precon"):
                 return pc_apply(r)
 
+        def cd_solve(rhs):
+            dT, info = cd_s._update_f64(rhs, zcd, mtol_cd, cd_s._sigma,
+                                        ops=cd_ops,
+                                        basis_rows=PRECON_BASIS_ROWS)
+            COUNTERS["mda.window_precon.cd_its"] += info.iterations
+            return dT
+
         def pc_apply(r):
             rT, ru, rv, rp = self._unpack(r)
-            dT = cd_s._update_f64(rT, zcd, mtol_cd, cd_s._sigma)[0]
+            dT = cd_solve(rT)
             if self.precon_type in ("bgs", "bgs2"):
                 rv = self._bgs_rhs(dT, rv)
-            if ns_s._linear_solver == "uzawa":
-                du, dv, dp = ns_s._update_uzawa(ru, rv, rp, zns, mtol_ns)[:3]
+            if ns_ops is None:
+                du, dv, dp, info, _ = ns_s._update_uzawa(ru, rv, rp, zns,
+                                                         mtol_ns)
             else:
-                q = ns_s._update_coupled_f64(torch.cat([ru, rv, rp]), zns,
-                                             mtol_ns)[0]
+                q, info = ns_s._update_coupled_f64(
+                    torch.cat([ru, rv, rp]), zns, mtol_ns, ops=ns_ops,
+                    basis_rows=PRECON_BASIS_ROWS)
                 du, dv, dp = q[:Nns], q[Nns:2 * Nns], q[2 * Nns:]
+            COUNTERS["mda.window_precon.ns_its"] += info.iterations
             if self.precon_type == "bgs2":
                 corr = self.cd_comp.apply_linear(torch.zeros_like(rT), du, dv)
-                dT = cd_s._update_f64(rT - corr, zcd, mtol_cd,
-                                      cd_s._sigma)[0]
+                dT = cd_solve(rT - corr)
             return torch.cat([dT, du, dv, dp])
 
         return pc
@@ -837,6 +883,9 @@ class BoussinesqMDA:
         iteration), so a window is no single graph: the algorithm is the
         reference's, the dispatch is per operation.
 
+        Each window is one span ``mda.window`` and one count of the
+        counter ``mda.windows``.
+
         Exits: converged; stalled or an empty window (accepted: the Newton
         loop's test on the true residual decides); two flat windows in a
         row (< 2 % each); the iteration cap.
@@ -854,7 +903,9 @@ class BoussinesqMDA:
         prev_res = None
         flat_windows = 0
         while True:
-            x, info, hist = self._jnk_window(x, b, atol, window, pc)
+            COUNTERS["mda.windows"] += 1
+            with span("mda.window"):
+                x, info, hist = self._jnk_window(x, b, atol, window, pc)
             done = info.iterations
             if self.iprint:
                 for j, h in enumerate(hist[:done].tolist()):

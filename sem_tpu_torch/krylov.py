@@ -19,8 +19,9 @@ decomposed f32 chunks on it.
 
 :class:`CapturedProgram` is the solve path's one rule for CUDA graphs.  On
 it, :class:`CapturedOperator` replays the fixed operator of the solvers'
-plain f32 chunks from one CUDA graph per linearization: the host launches
-one graph per inner iteration instead of the operator's dozens of kernels.
+plain f32 chunks from one CUDA graph per linearization, and the operators
+of the MDA's device windows' nested float64 solves: the host launches one
+graph per application instead of the operator's dozens of kernels.
 """
 from __future__ import annotations
 
@@ -216,6 +217,21 @@ def _read_first(rnorm, atol):
     return read(rnorm, "first"), float(atol)
 
 
+def _basis(rows, first, n, dtype, device):
+    """A Krylov basis buffer of ``rows`` rows, or of its ``first`` rows
+    (at least 2) where given; :func:`_grown` makes the rest."""
+    if first is not None:
+        rows = min(rows, max(2, int(first)))
+    return torch.empty((rows, n), dtype=dtype, device=device)
+
+
+def _grown(V, rows):
+    """``V`` in a buffer of ``rows`` rows, its rows copied exactly."""
+    W = V.new_empty((rows, V.shape[1]))
+    W[:V.shape[0]] = V
+    return W
+
+
 def _norm(group):
     """The 2-norm of a vector, or of a vector decomposed into this rank's
     strips over ``group`` (the local square sum, all-reduced)."""
@@ -232,7 +248,8 @@ def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, *, atol: float,
           restart: int = 30, maxiter: int = 1000,
           precon: Optional[Callable] = None, return_hist: bool = False,
-          basis_dtype=None, dgks_eta: float = None, group=None):
+          basis_dtype=None, dgks_eta: float = None, group=None,
+          basis_rows: int = None):
     """Restarted GMRES(m) with right preconditioning.
 
     Same algorithm as ``sem_tpu.krylov.gmres``: live-chunk block-MGS with a
@@ -265,6 +282,10 @@ def gmres(matvec: Callable, b: torch.Tensor,
         ``matvec``/``precon`` take and return are this rank's strips; every
         norm and projection is reduced locally, then all-reduced, so each
         scalar that reaches the host is the same on every rank
+    :param basis_rows: rows of the basis allocated at the start (None: all
+        ``m+1``); a cycle that needs more allocates the whole basis then and
+        copies the rows it has, so the iterates are the same.  For short
+        solves repeated many times, whose ``m+1`` rows would sit unused
     :return: ``(x, KrylovInfo)`` or ``(x, KrylovInfo, hist)``
     """
     if precon is None:
@@ -279,7 +300,7 @@ def gmres(matvec: Callable, b: torch.Tensor,
     bdt = dtype if basis_dtype is None else basis_dtype
     eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
     cchunk = min(_CHUNK, m + 1)
-    V = torch.empty((m + 1, n), dtype=bdt, device=b.device)
+    V = _basis(m + 1, basis_rows, n, bdt, b.device)
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
 
     def new_cycle(x, tol=0.0):
@@ -301,6 +322,8 @@ def gmres(matvec: Callable, b: torch.Tensor,
         cs, sn = [1.0] * m, [0.0] * m
         k = 0
         while True:
+            if k + 2 > V.shape[0]:
+                V = _grown(V, m + 1)
             hk, resw = _arnoldi_column(
                 V, matvec(precon(V[k].to(dtype))), k, cchunk, eta, eps_tiny,
                 norm, group)
@@ -336,7 +359,7 @@ def fgmres(matvec: Callable, b: torch.Tensor,
            x0: Optional[torch.Tensor] = None, *, atol: float,
            restart: int = 20, maxiter: int = 1000, precon: Callable,
            return_hist: bool = False, basis_dtype=None,
-           dgks_eta: float = None, group=None):
+           dgks_eta: float = None, group=None, basis_rows: int = None):
     """Flexible GMRES(m): the right preconditioner may vary per application
     (it may contain inner Krylov solves), so the preconditioned vectors ``Z``
     are stored and the solution update uses them (Saad's FGMRES).
@@ -347,7 +370,8 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     stall rule.  ``basis_dtype`` is the storage dtype of the Arnoldi basis
     ``V`` only: ``Z`` holds the solution update and stays in the working
     dtype.  ``atol`` may be a 0-d tensor, ``dgks_eta`` sets the DGKS
-    threshold, and ``group`` decomposes the solve over row strips, as in
+    threshold, ``group`` decomposes the solve over row strips and
+    ``basis_rows`` allocates the first rows of ``V`` and ``Z`` alone, as in
     :func:`gmres`.
 
     :return: ``(x, KrylovInfo)``, or ``(x, KrylovInfo, hist)`` with
@@ -363,8 +387,8 @@ def fgmres(matvec: Callable, b: torch.Tensor,
     bdt = dtype if basis_dtype is None else basis_dtype
     eps_tiny = 1e-300 if dtype == torch.float64 else 1e-30
     cchunk = min(_CHUNK, m + 1)
-    V = torch.empty((m + 1, n), dtype=bdt, device=b.device)
-    Z = torch.empty((m, n), dtype=dtype, device=b.device)
+    V = _basis(m + 1, basis_rows, n, bdt, b.device)
+    Z = torch.empty((V.shape[0] - 1, n), dtype=dtype, device=b.device)
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
 
     def new_cycle(x, tol=0.0):
@@ -386,6 +410,8 @@ def fgmres(matvec: Callable, b: torch.Tensor,
         cs, sn = [1.0] * m, [0.0] * m
         k = 0
         while True:
+            if k + 2 > V.shape[0]:
+                V, Z = _grown(V, m + 1), _grown(Z, m)
             Z[k] = precon(V[k].to(dtype))
             hk, resw = _arnoldi_column(V, matvec(Z[k]), k, cchunk, eta,
                                        eps_tiny, norm, group)
@@ -473,7 +499,8 @@ def strip_chunk(strips, nf: int, mv: Callable, pc: Callable, **gmres_kw):
 
 class CapturedProgram:
     """A program ``fn`` of device tensors replayed from one CUDA graph: the
-    one capture rule of the solve path, for the f32 chunks' operators
+    one capture rule of the solve path, for the f32 chunks' operators and
+    the device windows' nested float64 operators
     (:class:`CapturedOperator`, prefix ``krylov``) and the MDA's fused
     host-FGMRES programs (prefix ``mda``).
 
@@ -564,8 +591,9 @@ class CapturedProgram:
 
 
 class CapturedOperator(CapturedProgram):
-    """The fixed linear operator ``fn`` of one linearization's f32 chunks
-    as a :class:`CapturedProgram` (prefix ``krylov``): its first call on a
+    """The fixed linear operator ``fn`` of one linearization's f32 chunks,
+    or of the device windows' nested float64 solves, as a
+    :class:`CapturedProgram` (prefix ``krylov``): its first call on a
     CUDA tensor is the warm-up, whose result it returns, and captures
     ``fn`` on a static copy of its argument.  A caller consumes a result
     before it calls again, as :func:`gmres` does."""

@@ -219,21 +219,42 @@ class ConvectionDiffusionSolver:
                   f"{info.resnorm:.3e}")
         return dT
 
-    def _update_f64(self, drhs, dT0, mtol, sigma, return_hist=False):
+    def _ops64(self, sigma, captured=False, lin=None):
+        """``(mv, pc)`` of :meth:`_update_f64` at the mass shift ``sigma``:
+        the tangent matvec and the FDM, on the current wind or on ``lin =
+        (u, v)``.  With ``captured``, each is a
+        :class:`sem_tpu_torch.krylov.CapturedOperator`, one CUDA graph on
+        the card: for a caller that solves many times on one linearization,
+        or on a copy of it that it refreshes in place."""
+        u, v = (self._u, self._v) if lin is None else lin
+        mv = self._mv(u, v, sigma)
+        fdm = self._fdm
+
+        def pc(r):
+            return fdm(r, sigma=sigma)
+
+        if captured:
+            return CapturedOperator(mv), CapturedOperator(pc)
+        return mv, pc
+
+    def _update_f64(self, drhs, dT0, mtol, sigma, return_hist=False,
+                    ops=None, basis_rows: int = None):
         """One float64 FDM-preconditioned GMRES on the tangent system
         (``mixed_precision=False``, and the preconditioner solves of the
         MDA's device windows), to the absolute RMS tolerance or ``mtol``
-        relative to the RHS scale, whichever is larger.
+        relative to the RHS scale, whichever is larger.  ``ops``: the
+        :meth:`_ops64` at ``sigma``, made once by a caller that solves many
+        times; ``basis_rows``: as in :func:`sem_tpu_torch.krylov.gmres`.
 
         :return: ``(dT, KrylovInfo)``, plus the history with ``return_hist``
         """
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(mtol * np.sqrt(self.N), max(mtol, 50 * eps)
                    * read(torch.linalg.vector_norm(drhs), "cd.tol"))
-        return gmres(self._mv(self._u, self._v, sigma), drhs, x0=dT0,
-                     atol=atol, restart=self._restart, maxiter=self._maxiter,
-                     precon=lambda r: self._fdm(r, sigma=sigma),
-                     return_hist=return_hist)
+        mv, pc = self._ops64(sigma) if ops is None else ops
+        return gmres(mv, drhs, x0=dT0, atol=atol, restart=self._restart,
+                     maxiter=self._maxiter, precon=pc,
+                     return_hist=return_hist, basis_rows=basis_rows)
 
     def _lin32(self):
         """f32 casts of the current wind, made once per linearization

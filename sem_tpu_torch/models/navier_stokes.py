@@ -555,24 +555,47 @@ class NavierStokesSolver:
         _, pc = self._coupled_ops(ul, vl, (z,) * 4, self._dtype)
         return pc(r, sigma)
 
-    def _update_coupled_f64(self, b, dp0, mtol, hist_out: list = None):
+    def _ops64(self, captured=False, lin=None):
+        """``(mv, pc)`` of :meth:`_update_coupled_f64`: the saddle matvec
+        and the block preconditioner at the current σ, on the current
+        linearization or on ``lin = (u_lin, v_lin, jxx, jxy, jyx, jyy)``.
+        With ``captured`` and a fixed preconditioner (``velo_inner`` 0),
+        each is a :class:`sem_tpu_torch.krylov.CapturedOperator`, one CUDA
+        graph on the card: for a caller that solves many times on one
+        linearization, or on a copy of it that it refreshes in place."""
+        u, v, *jac = ((self._u_lin, self._v_lin, *self._jac) if lin is None
+                      else lin)
+        mv, pc = self._coupled_ops(u, v, tuple(jac), self._dtype,
+                                   velo_inner=self._velo_inner)
+        sigma = self._sigma
+
+        def pc_sigma(r):
+            return pc(r, sigma)
+
+        if captured and self._velo_inner == 0:
+            return CapturedOperator(mv), CapturedOperator(pc_sigma)
+        return mv, pc_sigma
+
+    def _update_coupled_f64(self, b, dp0, mtol, hist_out: list = None,
+                            ops=None, basis_rows: int = None):
         """Single-level float64 saddle solve (``mixed_precision=False``, and
         escalation step 2 of a floored mixed solve); flexible GMRES when
         ``velo_inner > 0``.  With a list ``hist_out`` the per-iteration
-        recurrence residuals are appended to it."""
+        recurrence residuals are appended to it.  ``ops``: the
+        :meth:`_ops64` of the current linearization, made once by a caller
+        that solves many times; ``basis_rows``: as in
+        :func:`sem_tpu_torch.krylov.gmres`."""
         N = self.N
         eps = float(torch.finfo(self._dtype).eps)
         atol = max(mtol * np.sqrt(3 * N), max(mtol, 50 * eps)
                    * read(torch.linalg.vector_norm(b), "ns.tol"))
-        mv, pc = self._coupled_ops(self._u_lin, self._v_lin, self._jac,
-                                   self._dtype, velo_inner=self._velo_inner)
+        mv, pc = self._ops64() if ops is None else ops
         z = torch.zeros(2 * N, dtype=self._dtype, device=self.device)
-        sigma = self._sigma
         solver = fgmres if self._velo_inner > 0 else gmres
         x, info, *hist = solver(mv, b, x0=torch.cat([z, dp0]), atol=atol,
                                 restart=self._restart, maxiter=self._maxiter,
-                                precon=lambda r: pc(r, sigma),
-                                return_hist=hist_out is not None)
+                                precon=pc, return_hist=hist_out is not None,
+                                basis_rows=basis_rows)
         if hist_out is not None:
             hist_out.extend(hist)
         return x, info

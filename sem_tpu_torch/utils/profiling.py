@@ -17,7 +17,8 @@ and the port's own spans and counters on its solve path.
   is on, wrapped in the span ``read.<site>``;
 * :data:`COUNTERS`: the program's own counters (``reads.<site>``,
   ``ns.inner_its``, ``krylov.captures``, ``krylov.replays``,
-  ``mda.captures``, ``mda.replays``, ``ptc.*``,
+  ``mda.captures``, ``mda.replays``, ``ptc.*``, ``mda.windows``,
+  ``mda.window_precon.*``,
   ``build.cache_hits``, ``build.cache_misses``), always on:
   one integer increment each.
   :func:`counters` is a flat snapshot of them and of
@@ -51,6 +52,9 @@ __all__ = ["PhaseTimer", "trace", "span", "read", "enable", "disable",
 #: host-FGMRES programs, ``start`` and ``step`` (``krylov.CapturedProgram``);
 #: ``ptc.<outcome>``: the coupled PTC march's step attempts, ``accepted``,
 #: ``partial``, ``rejects.blowup``, ``rejects.linfail``;
+#: ``mda.windows``: the MDA's device windows; ``mda.window_precon.cd_its``,
+#: ``mda.window_precon.ns_its``: GMRES iterations of the float64 discipline
+#: solves nested in the windows' preconditioner;
 #: ``build.cache_hits``, ``build.cache_misses``: grids, FDM solvers and
 #: spectral Schur data a constructor asked ``sem_tpu_torch.build_cache``
 #: for, found there or built)
